@@ -1,0 +1,451 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch + CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--n-keys N] [--seed S] [--log-dir DIR]
+
+Run from the repository root (or anywhere: it finds ``src/`` next to
+itself).  It drives the port only — never JAX, never the reference
+package — and exits non-zero, printing no result, when there is no CUDA
+device or any phase fails:
+
+1. build: compile the CUDA kernels from ``src/repro_torch/csrc`` (one
+   ``nvcc`` per source, in parallel) and load them;
+2. kernels vs plain versions, byte for byte, at edge shapes: n not a tile
+   multiple, 128-word keys (pext), duplicate and all-ones keys (bitonic),
+   windows starting on a word boundary and in the last word (pk-window,
+   probe);
+3. the slice: ``ReconstructionPipeline(backend="cuda").run`` on the
+   paper's Zipf(s=1.5, n=64 bytes, m=0) keys (§6.3, Table 4 dataset 15)
+   at 10M keys, rows shuffled by a seeded permutation, rids = row index;
+   run twice (the second is timed) plus the full-key baseline, checked
+   against the plain ``"torch"`` backend on the same card;
+4. lookups: four batches of 2^18 queries, half hits and half misses,
+   then one more run and lookup batch traced with ``torch.profiler``
+   (device time by kernel, idle share of the window);
+5. kernel report: each kernel's launches on the main path (phases 3-4),
+   its time at the main path's shapes, its plain version's time and the
+   least time the card could take for the same bytes and operations.
+
+The last line is ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+import torch  # noqa: E402
+
+from repro_torch.backends import get_backend  # noqa: E402
+from repro_torch.configs.paper_index import ZipfConfig  # noqa: E402
+from repro_torch.core import plancache  # noqa: E402
+from repro_torch.core.btree import NOT_FOUND_RID, _descend  # noqa: E402
+from repro_torch.core.compress import make_plan  # noqa: E402
+from repro_torch.core.dbits import compute_dbitmap, lex_less  # noqa: E402
+from repro_torch.core.keyformat import KeySet  # noqa: E402
+from repro_torch.core.pipeline import ReconstructionPipeline  # noqa: E402
+from repro_torch.core.u32 import to_carrier, to_u32  # noqa: E402
+from repro_torch.data.synthetic import zipf_keys  # noqa: E402
+from repro_torch.kernels import cudalib  # noqa: E402
+from repro_torch.kernels.bitonic import DEFAULT_BLOCK, block_sort, block_sort_plain  # noqa: E402
+from repro_torch.kernels.build import pk_windows, pk_windows_plain  # noqa: E402
+from repro_torch.kernels.lookup import probe, probe_plain  # noqa: E402
+from repro_torch.kernels.pext import pext, pext_plain  # noqa: E402
+
+#: H100 SXM HBM3 rate (NVIDIA data sheet), for the bytes bound
+PEAK_BYTES_PER_S = 3.35e12
+#: H100 SXM 32-bit rate outside the tensor cores (NVIDIA data sheet, the
+#: float32 figure), for the operations bound of the kernels' integer work
+PEAK_OPS_PER_S = 67e12
+BATCH = 1 << 18
+N_BATCHES = 4
+
+#: kernel -> (CUDA source, the TPU kernel it replaces)
+KERNELS = {
+    "pext": ("src/repro_torch/csrc/pext.cu", "src/repro/kernels/pext/kernel.py:35"),
+    "bitonic_block_sort": ("src/repro_torch/csrc/bitonic.cu",
+                           "src/repro/kernels/bitonic/kernel.py:43"),
+    "pk_window": ("src/repro_torch/csrc/pk_window.cu",
+                  "src/repro/kernels/build/kernel.py:38"),
+    "probe": ("src/repro_torch/csrc/probe.cu", "src/repro/kernels/lookup/kernel.py:36"),
+}
+
+
+def check(cond, msg: str) -> None:
+    """Fail the run (non-zero exit, no result line) unless ``cond``."""
+    if not cond:
+        raise SystemExit(f"FAILED: {msg}")
+
+
+def same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and bool(torch.equal(a, b))
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Median device time of ``fn`` in ms, by CUDA events, after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def rand_words(rng, n, w, mask=0xFFFFFFFF) -> np.ndarray:
+    return rng.integers(0, 2**32, size=(n, w), dtype=np.uint32) & np.uint32(mask)
+
+
+# ---------------------------------------------------------------------------
+# phase 2: each kernel against its plain version at edge shapes
+# ---------------------------------------------------------------------------
+
+def edge_checks(dev, rng) -> None:
+    # pext: n off any tile multiple, 3-word and 128-word keys
+    for n, w, mask in [(5003, 3, 0x3FC0FF03), (300, 128, 0x01010101), (4099, 16, 0x0F0F0F0F)]:
+        words = to_carrier(rand_words(rng, n, w, mask), dev)
+        plan = make_plan(to_u32(compute_dbitmap(words)), w)
+        check(same(pext(words, plan), pext_plain(words, plan)),
+              f"pext kernel != plain at n={n} W={w} ({plan.n_bits} bits)")
+    # bitonic: duplicates, all-ones keys with a permuted payload, a ragged
+    # last block, the full-key width, and 128-word keys in a 64-row block
+    for n, w, block, kind in [(4096 + 77, 4, 512, "dup"), (1000, 2, 512, "ones"),
+                              (5000, 16, 512, "dup"), (777, 3, 128, "rand"),
+                              (300, 128, 64, "dup")]:
+        if kind == "dup":
+            keys = np.repeat(rand_words(rng, -(-n // 4), w, 0x000000FF), 4, axis=0)[:n]
+        elif kind == "ones":
+            keys = np.full((n, w), 0xFFFFFFFF, np.uint32)
+        else:
+            keys = rand_words(rng, n, w)
+        words = to_carrier(keys, dev)
+        rows = torch.as_tensor(rng.permutation(n), device=dev)
+        kk, kr = block_sort(words, rows, block=block)
+        pk_, pr = block_sort_plain(words, rows, block=block)
+        check(same(kk, pk_) and same(kr, pr),
+              f"bitonic kernel != plain at n={n} W={w} block={block} ({kind})")
+        key_of_row = torch.empty_like(words)
+        key_of_row[rows] = words
+        check(same(key_of_row[kr], kk), f"bitonic payload does not follow keys ({kind})")
+        check(same(torch.sort(kr).values, torch.arange(n, device=dev)),
+              f"bitonic payload is not a permutation ({kind})")
+    # pk-window: starts on word boundaries (sh == 0), in the last word,
+    # and outside the key (clipped), for pk 1, 16 and 32
+    for m, w in [(10007, 16), (333, 1), (4096, 4)]:
+        words = to_carrier(rand_words(rng, m, w), dev)
+        top = w * 32
+        starts = np.concatenate([
+            rng.integers(-40, top + 40, size=m - m // 2),
+            32 * rng.integers(0, w, size=m // 4),
+            top - 1 - rng.integers(0, 32, size=m // 2 - m // 4),
+        ])
+        st = torch.as_tensor(rng.permutation(starts), device=dev)
+        for pk in (1, 16, 32):
+            check(same(pk_windows(words, st, pk), pk_windows_plain(words, st, pk)),
+                  f"pk-window kernel != plain at m={m} W={w} pk={pk}")
+    # probe: random leaves with dpos + 1 on word boundaries and in the last word
+    for q, w, n_leaves, lc in [(3001, 16, 500, 12), (64, 2, 7, 3)]:
+        top = w * 32
+        queries = to_carrier(rand_words(rng, q, w), dev)
+        dpos = np.concatenate([
+            32 * rng.integers(0, w, size=n_leaves * lc // 3) - 1,
+            top - 2 - rng.integers(0, 32, size=n_leaves * lc // 3),
+        ])
+        dpos = np.concatenate([dpos, rng.integers(0, top, size=n_leaves * lc - dpos.size)])
+        leaf_dpos = torch.as_tensor(rng.permutation(dpos).reshape(n_leaves, lc), device=dev)
+        node = torch.as_tensor(rng.integers(0, n_leaves, size=q), device=dev)
+        for pk in (16, 32):
+            win = pk_windows_plain(queries.repeat_interleave(lc, 0),
+                                   leaf_dpos[node].reshape(-1) + 1, pk).reshape(q, lc)
+            # half the stored partial keys match the query window
+            leaf_pk = to_carrier(rand_words(rng, n_leaves, lc, (1 << pk) - 1), dev)
+            leaf_pk[node[: q // 2]] = win[: q // 2]
+            got = probe(queries, node, leaf_dpos, leaf_pk, pk)
+            check(same(got, probe_plain(queries, node, leaf_dpos, leaf_pk, pk)),
+                  f"probe kernel != plain at q={q} W={w} pk={pk}")
+            check(bool(got.any()), "probe matched nothing")
+
+
+# ---------------------------------------------------------------------------
+# phases 3-4: the slice and its lookups
+# ---------------------------------------------------------------------------
+
+def tree_arrays(tree) -> dict:
+    out = {f"leaf.{k}": v for k, v in tree.leaf.items()}
+    for i, level in enumerate(tree.levels):
+        out.update({f"level{i}.{k}": v for k, v in level.items()})
+    out["sorted_full"] = tree.sorted_full
+    out["sorted_rids"] = tree.sorted_rids
+    return out
+
+
+def make_queries(words: np.ndarray, rng) -> tuple[np.ndarray, np.ndarray]:
+    """A batch of hits (rows sampled by seed; expected rid = row) and
+    misses (byte 63 set to 'A': the generator only emits 'a'..'z')."""
+    n = words.shape[0]
+    hit_rows = rng.integers(0, n, size=BATCH // 2)
+    misses = words[rng.integers(0, n, size=BATCH - BATCH // 2)].copy()
+    misses[:, -1] = (misses[:, -1] & np.uint32(0xFFFFFF00)) | np.uint32(ord("A"))
+    queries = np.concatenate([words[hit_rows], misses])
+    expect = np.concatenate([hit_rows.astype(np.uint32),
+                             np.full(misses.shape[0], NOT_FOUND_RID, np.uint32)])
+    order = rng.permutation(BATCH)
+    return queries[order], expect[order]
+
+
+def profile_slice(pipe, keyset, tree, queries, log_dir) -> dict:
+    """One traced ``run`` of the slice plus one lookup batch under
+    ``torch.profiler``: device time by kernel, and the share of the window
+    in which the device ran nothing (busy time is the sum of device
+    events, which on one stream do not overlap)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    pipe._sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = pipe.run(keyset)
+        pipe.backend.lookup(tree, queries)
+        pipe._sync()
+        wall = time.perf_counter() - t0
+    device = sorted(
+        ((e.key, e.self_device_time_total / 1e3, e.count)
+         for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+        key=lambda row: -row[1],
+    )
+    busy_ms = sum(ms for _, ms, _ in device)
+    if log_dir is not None:
+        log_dir.mkdir(parents=True, exist_ok=True)
+        (log_dir / "profile_device_ms.txt").write_text("".join(
+            f"{ms:12.3f} ms {count:6d}x  {name}\n" for name, ms, count in device))
+    return {
+        "traced_wall_s": wall, "traced_stage_s": res.timings,
+        "device_busy_s": busy_ms / 1e3, "idle_share": 1 - busy_ms / 1e3 / wall,
+        "top_device_ms": [[name[:60], ms, count] for name, ms, count in device[:10]],
+    }
+
+
+def main(argv=None) -> int:
+    """Run the phases on CUDA device 0."""
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--n-keys", type=int, default=10_000_000)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--reps", type=int, default=10, help="timed launches per kernel")
+    ap.add_argument("--log-dir", type=Path, default=None,
+                    help="write the compiler output (and the profile) here")
+    args = ap.parse_args(argv)
+
+    if not torch.cuda.is_available():
+        print("no CUDA device: this smoke test runs only on a GPU", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(args.seed)
+    card = card_line()
+    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+
+    # -- 1. build ----------------------------------------------------------
+    t0 = time.perf_counter()
+    cudalib.lib()
+    print(f"[build] kernel library ready in {time.perf_counter() - t0:.2f} s", flush=True)
+    if args.log_dir is not None and cudalib.last_build is not None:
+        args.log_dir.mkdir(parents=True, exist_ok=True)
+        (args.log_dir / "nvcc_build.log").write_text(cudalib.last_build[1])
+
+    # -- 2. kernels vs plain versions at edge shapes -------------------------
+    t0 = time.perf_counter()
+    edge_checks(dev, rng)
+    torch.cuda.synchronize()
+    print(f"[kernels] pext, bitonic, pk-window, probe == plain at edge shapes "
+          f"({time.perf_counter() - t0:.2f} s)", flush=True)
+
+    # -- 3. the slice --------------------------------------------------------
+    t0 = time.perf_counter()
+    ks = zipf_keys(ZipfConfig(1.5, 64, 0, args.n_keys), seed=args.seed)
+    perm = rng.permutation(ks.n)  # zipf_keys returns sorted rows
+    n = ks.n
+    keyset = KeySet(words=ks.words[perm], lengths=ks.lengths[perm],
+                    rids=np.arange(n, dtype=np.uint32))
+    print(f"[data] Zipf(1.5, 64, 0): {n} unique keys of {keyset.n_words} words "
+          f"({args.n_keys} drawn) in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # one sort bucket for the whole set: the chunked sort (and its merge
+    # kernel) belongs to a later slice
+    threshold = 1 << 24
+    pipe = ReconstructionPipeline(backend="cuda", chunk_threshold=threshold, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    cudalib.reset_launches()
+    pipe.run(keyset)  # first run: allocator and library warm-up
+    t1 = time.perf_counter()
+    res = pipe.run(keyset)  # ends on the host (refresh_meta, stats)
+    run_wall = time.perf_counter() - t1
+    pipe.run(keyset, full_keys=True)
+    t1 = time.perf_counter()
+    full = pipe.run(keyset, full_keys=True)
+    full_wall = time.perf_counter() - t1
+    query_batches = [make_queries(keyset.words, rng) for _ in range(N_BATCHES)]
+    answers = []
+    t_lookup = []
+    for q_np, _ in query_batches:
+        q = to_carrier(q_np, dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        answers.append(pipe.backend.lookup(res.tree, q))
+        torch.cuda.synchronize()
+        t_lookup.append(time.perf_counter() - t1)
+    launches = dict(cudalib.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    for name, count in launches.items():
+        check(count > 0, f"the main path never launched the {name} kernel")
+
+    st, tm, ft = res.stats, res.timings, full.timings
+    slice_line = {
+        "n_keys": n, "key_words": keyset.n_words, "bucket": plancache.bucket(n),
+        "distinction_bits": st["distinction_bits"],
+        "comp_words": st["comp_sort_key_words"] - 1,
+        "tree_height": st["tree_height"],
+        "timings_s": {k: tm[k] for k in ("meta", "extract", "sort", "build",
+                                         "refresh_meta", "total")},
+        "run_wall_s": run_wall,
+        "full_keys_timings_s": {k: ft[k] for k in ("sort", "build", "total")},
+        "full_keys_run_wall_s": full_wall,
+        "sort_ratio_full_over_comp": ft["sort"] / tm["sort"],
+        "lookup_batch_s": t_lookup,
+        "peak_mem_gib": peak_gib,
+    }
+    print(f"[slice] {json.dumps(slice_line)}", flush=True)
+
+    # checks: order, permutation, and equality with the plain backend
+    keyed = torch.cat([res.comp_sorted, res.row_sorted[:, None]], dim=1)
+    check(bool(lex_less(keyed[:-1], keyed[1:]).all()),
+          "comp_sorted is not ascending in (key, row)")
+    check(same(torch.sort(res.rid_sorted).values, torch.arange(n, device=dev)),
+          "rid_sorted is not a permutation")
+    ref_pipe = ReconstructionPipeline(backend="torch", chunk_threshold=threshold, device=dev)
+    ref = ref_pipe.run(keyset)
+    for name in ("comp_sorted", "row_sorted", "rid_sorted"):
+        check(same(getattr(res, name), getattr(ref, name)), f"{name} differs from torch")
+    got_arrays, ref_arrays = tree_arrays(res.tree), tree_arrays(ref.tree)
+    check(got_arrays.keys() == ref_arrays.keys(), "tree shapes differ from torch")
+    for key in got_arrays:
+        check(same(got_arrays[key], ref_arrays[key]), f"tree {key} differs from torch")
+    for field in ("dbitmap", "varbitmap", "refkey"):
+        check(np.array_equal(getattr(res.meta, field), getattr(ref.meta, field)),
+              f"meta.{field} differs from torch")
+    ref_full = ref_pipe.run(keyset, full_keys=True)
+    for key, val in tree_arrays(full.tree).items():
+        check(same(val, tree_arrays(ref_full.tree)[key]), f"full-key tree {key} differs")
+    del ref, ref_full, ref_arrays
+    print("[slice] sorted run, permutation, tree and meta == torch backend", flush=True)
+
+    # -- 4. lookups ------------------------------------------------------------
+    torch_backend = get_backend("torch", device=dev)
+    for (q_np, expect), (found, rid) in zip(query_batches, answers):
+        check(np.array_equal(to_u32(rid), expect), "a lookup answer is wrong")
+        check(np.array_equal(found.cpu().numpy(), expect != NOT_FOUND_RID),
+              "a lookup found flag is wrong")
+        f_ref, r_ref = torch_backend.lookup(res.tree, to_carrier(q_np, dev))
+        check(same(found, f_ref) and same(rid, r_ref), "lookup differs from torch")
+    print(f"[lookup] {N_BATCHES} x {BATCH} queries: every hit returns its rid, "
+          f"every miss NOT_FOUND_RID, == torch backend", flush=True)
+    traced = profile_slice(pipe, keyset, res.tree, to_carrier(query_batches[0][0], dev),
+                           args.log_dir)
+    print(f"[profile] {json.dumps(traced)}", flush=True)
+
+    # -- 5. kernel report at the main path's shapes ---------------------------
+    b = plancache.bucket(n)
+    words_dev = plancache.pad_tail(to_carrier(keyset.words, dev), b, plancache.SENTINEL)
+    plan = make_plan(res.extract_bitmap, keyset.n_words)
+    comp = pext(words_dev, plan)
+    comp_m, rows_m = plancache._mask_run(comp, plancache.iota(b, dev), n, plancache.ROW_PAD_A)
+    tree = res.tree
+    starts = tree.leaf["dpos"].reshape(-1)[:n] + 1
+    q0 = to_carrier(query_batches[0][0], dev)
+    node = _descend(tree, q0)
+    lc = tree.config.leaf_cap
+    pk = tree.config.pk_bits
+    wc = plan.n_words_out
+    w = keyset.n_words
+
+    def touched_words(st: torch.Tensor, row: torch.Tensor) -> int:
+        """Distinct (row, word) pairs a window read touches."""
+        wi = st.clamp(0, w * 32 - 1) // 32
+        ids = torch.cat([row * w + wi, (row * w + wi + 1)[wi + 1 < w]])
+        return int(torch.unique(ids).numel())
+
+    pair_q = torch.arange(BATCH, device=dev).repeat_interleave(lc)
+    pair_starts = tree.leaf["dpos"][node].reshape(-1) + 1
+    slots = int(torch.unique(node).numel()) * lc
+    log_block = DEFAULT_BLOCK.bit_length() - 1
+    # name -> (kernel, plain version, bytes moved at u32 width, operations):
+    # pext does shift, and, shift, or per kept bit of each key; the
+    # network does at least one compare per compare-exchange; a window
+    # takes about six integer operations, a probe pair one more
+    cases = {
+        "pext": (lambda: pext(words_dev, plan), lambda: pext_plain(words_dev, plan),
+                 b * (w + wc) * 4, b * plan.n_bits * 4),
+        "bitonic_block_sort": (lambda: block_sort(comp_m, rows_m),
+                               lambda: block_sort_plain(comp_m, rows_m),
+                               2 * b * (wc + 1) * 4,
+                               b // 2 * log_block * (log_block + 1) // 2),
+        "pk_window": (lambda: pk_windows(tree.sorted_full, starts, pk),
+                      lambda: pk_windows_plain(tree.sorted_full, starts, pk),
+                      (touched_words(starts, torch.arange(n, device=dev)) + 2 * n) * 4,
+                      n * 6),
+        "probe": (lambda: probe(q0, node, tree.leaf["dpos"], tree.leaf["pk"], pk),
+                  lambda: probe_plain(q0, node, tree.leaf["dpos"], tree.leaf["pk"], pk),
+                  touched_words(pair_starts, pair_q) * 4 + BATCH * 4
+                  + slots * 2 * 4 + BATCH * lc,
+                  BATCH * lc * 7),
+    }
+    report = []
+    for name, (kernel_fn, plain_fn, n_bytes, n_ops) in cases.items():
+        got, want = kernel_fn(), plain_fn()
+        got, want = (got if isinstance(got, tuple) else (got,)), \
+            (want if isinstance(want, tuple) else (want,))
+        match = all(same(g, p) for g, p in zip(got, want))
+        err = max(float((g.to(torch.int64) - p.to(torch.int64)).abs().max()) if g.numel() else 0.0
+                  for g, p in zip(got, want))
+        check(match, f"{name} kernel != plain at the main path's shapes")
+        source, replaces = KERNELS[name]
+        bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+        ops_ms = n_ops / PEAK_OPS_PER_S * 1e3
+        report.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[name], "max_abs_err": err,
+            "ms": cuda_ms(kernel_fn, args.reps), "plain_ms": cuda_ms(plain_fn, 3),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None, "match": match,
+        })
+    del comp, comp_m, rows_m, words_dev
+    print(json.dumps({"kernels": report}), flush=True)
+    print(card_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

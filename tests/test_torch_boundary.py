@@ -1,0 +1,210 @@
+"""The port's boundaries: what it imports, where it runs, and which path a
+kernel wrapper takes.
+
+* ``repro_torch`` and ``chip_smoke.py`` import neither JAX nor the
+  reference package ``repro`` (checked in a fresh interpreter and by a scan
+  of the sources);
+* the entry points run on CUDA unless the caller names another device:
+  with no GPU they raise instead of running on the host;
+* a CUDA kernel wrapper given a CPU tensor runs its plain version and
+  launches nothing;
+* ``chip_smoke.py`` exits non-zero and prints no result without a GPU, and
+  when it stands alone, away from the package.
+"""
+
+import importlib.util
+import json
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.backends import get_backend  # noqa: E402
+from repro_torch.convert import tree_from_numpy  # noqa: E402
+from repro_torch.core.btree import BTreeConfig  # noqa: E402
+from repro_torch.core.compress import make_plan  # noqa: E402
+from repro_torch.core.dbits import compute_dbitmap  # noqa: E402
+from repro_torch.core.keyformat import KeySet  # noqa: E402
+from repro_torch.core.metadata import meta_from_keys  # noqa: E402
+from repro_torch.core.pipeline import ReconstructionPipeline  # noqa: E402
+from repro_torch.core.reconstruct import full_key_reconstruct, reconstruct_index  # noqa: E402
+from repro_torch.core.u32 import to_carrier, to_u32  # noqa: E402
+from repro_torch.kernels import cudalib  # noqa: E402
+from repro_torch.kernels.bitonic import block_sort, block_sort_plain  # noqa: E402
+from repro_torch.kernels.build import pk_windows, pk_windows_plain  # noqa: E402
+from repro_torch.kernels.lookup import probe, probe_plain  # noqa: E402
+from repro_torch.kernels.pext import pext, pext_plain  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+PACKAGE = ROOT / "src" / "repro_torch"
+FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|repro)(?:[.\s,]|$)", re.M)
+
+
+def _keyset(n=300, w=3, seed=0) -> KeySet:
+    rng = np.random.default_rng(seed)
+    words = rng.integers(0, 2**32, size=(n, w), dtype=np.uint32) & np.uint32(0x00FF0F0F)
+    return KeySet(words=words, lengths=np.full(n, 4 * w, np.int32),
+                  rids=np.arange(n, dtype=np.uint32))
+
+
+# ---------------------------------------------------------------------------
+# imports
+# ---------------------------------------------------------------------------
+
+
+def test_package_and_smoke_script_import_neither_jax_nor_reference():
+    """A fresh interpreter imports every module of the port and loads
+    ``chip_smoke.py`` as a module (``main`` not run); neither JAX nor the
+    reference package may be loaded after it."""
+    code = f"""
+import importlib, importlib.util, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+spec = importlib.util.spec_from_file_location("chip_smoke", {str(ROOT / "chip_smoke.py")!r})
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(len(names), bad)
+"""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, cwd=ROOT, timeout=300)
+    assert out.returncode == 0, out.stderr
+    n_modules, bad = out.stdout.split(maxsplit=1)
+    assert int(n_modules) >= 20
+    assert bad.strip() == "[]"
+
+
+def test_sources_name_neither_jax_nor_reference():
+    files = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    offenders = [str(f.relative_to(ROOT)) for f in files
+                 if FORBIDDEN.search(f.read_text())]
+    assert offenders == []
+
+
+def test_forbidden_import_pattern():
+    """The scan's pattern catches the reference and JAX, not the port."""
+    assert FORBIDDEN.search("import jax.numpy as jnp")
+    assert FORBIDDEN.search("from repro.core import dbits")
+    assert FORBIDDEN.search("    import repro")
+    assert not FORBIDDEN.search("from repro_torch.core import dbits")
+    assert not FORBIDDEN.search("import repro_torch")
+
+
+# ---------------------------------------------------------------------------
+# the device rule: CUDA unless the caller names another device
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def no_gpu(monkeypatch):
+    """A machine without a GPU, whatever this one has."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.mark.parametrize("entry", [
+    "pipeline_cuda", "pipeline_torch", "backend_cuda", "backend_torch",
+    "reconstruct_index", "full_key_reconstruct", "meta_from_keys", "tree_from_numpy",
+])
+def test_default_device_entry_points_raise_without_gpu(no_gpu, entry):
+    ks = _keyset()
+    calls = {
+        "pipeline_cuda": lambda: ReconstructionPipeline(),
+        "pipeline_torch": lambda: ReconstructionPipeline(backend="torch"),
+        "backend_cuda": lambda: get_backend("cuda"),
+        "backend_torch": lambda: get_backend("torch"),
+        "reconstruct_index": lambda: reconstruct_index(ks),
+        "full_key_reconstruct": lambda: full_key_reconstruct(ks),
+        "meta_from_keys": lambda: meta_from_keys(ks.words),
+        "tree_from_numpy": lambda: tree_from_numpy(
+            [], {"rid": np.zeros((1, 12), np.uint32)}, ks.words[:1], ks.rids[:1], 1,
+            BTreeConfig()),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()
+
+
+def test_explicit_cpu_device_runs_on_the_host(no_gpu):
+    res = reconstruct_index(_keyset(), device="cpu")
+    assert res.comp_sorted.device.type == "cpu"
+    assert res.stats["device"] == "cpu"
+
+
+def test_smoke_script_refuses_to_run_without_gpu(no_gpu, capsys):
+    spec = importlib.util.spec_from_file_location("chip_smoke_under_test",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert smoke.main([]) != 0
+    assert '"ok"' not in capsys.readouterr().out
+
+
+def test_smoke_script_fails_alone(tmp_path):
+    """Copied into a directory that holds nothing else of the repository,
+    the script exits non-zero and prints no result line."""
+    (tmp_path / "chip_smoke.py").write_bytes((ROOT / "chip_smoke.py").read_bytes())
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "chip_smoke.py"], capture_output=True,
+                         text=True, env=env, cwd=tmp_path, timeout=300)
+    assert out.returncode != 0
+    for line in out.stdout.splitlines():
+        assert not (line.startswith("{") and json.loads(line).get("ok"))
+
+
+# ---------------------------------------------------------------------------
+# a CUDA kernel wrapper on a CPU tensor: the plain version, no launch
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def no_kernel_library(monkeypatch):
+    """Any attempt to build or load the kernel library fails the test."""
+    def refuse():
+        raise AssertionError("a CPU tensor reached the CUDA kernel library")
+
+    monkeypatch.setattr(cudalib, "lib", refuse)
+    cudalib.reset_launches()
+    yield
+    assert all(count == 0 for count in cudalib.LAUNCHES.values()), cudalib.LAUNCHES
+
+
+def test_pext_wrapper_on_cpu_takes_plain_version(no_kernel_library):
+    words = to_carrier(_keyset(n=257, w=4).words, "cpu")
+    plan = make_plan(to_u32(compute_dbitmap(words)), 4)
+    assert torch.equal(pext(words, plan), pext_plain(words, plan))
+
+
+def test_block_sort_wrapper_on_cpu_takes_plain_version(no_kernel_library):
+    words = to_carrier(_keyset(n=300, w=2).words, "cpu")
+    rows = torch.randperm(300, generator=torch.Generator().manual_seed(0))
+    got, want = block_sort(words, rows, block=64), block_sort_plain(words, rows, block=64)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_pk_window_and_probe_wrappers_on_cpu_take_plain_versions(no_kernel_library):
+    words = to_carrier(_keyset(n=96, w=3).words, "cpu")
+    starts = torch.arange(96) - 1  # clipped, word boundaries, last word
+    assert torch.equal(pk_windows(words, starts, 16), pk_windows_plain(words, starts, 16))
+    node = torch.arange(8) % 4
+    dpos = starts.reshape(8, 12)[:4]
+    leaf_pk = pk_windows_plain(words[:48], starts[:48] + 1, 16).reshape(4, 12)
+    assert torch.equal(probe(words[:8], node, dpos, leaf_pk, 16),
+                       probe_plain(words[:8], node, dpos, leaf_pk, 16))
+
+
+def test_cuda_backend_on_cpu_launches_nothing(no_kernel_library):
+    ks = _keyset(n=500, w=3, seed=1)
+    res = ReconstructionPipeline(backend="cuda", device="cpu").run(ks)
+    found, rid = get_backend("cuda", device="cpu").lookup(
+        res.tree, to_carrier(ks.words[:64], "cpu"))
+    assert bool(found.all())
+    np.testing.assert_array_equal(to_u32(rid), ks.rids[:64])

@@ -1,0 +1,161 @@
+"""Each kernel's plain-PyTorch version against the JAX reference kernel.
+
+The reference kernels run as ``tests/test_kernels.py`` runs them on the
+CPU (Pallas ``interpret=True``); the port's plain versions are what its
+CUDA wrappers fall back to on a CPU tensor and what ``chip_smoke.py``
+holds the CUDA kernels against on the card.  Outputs are integers and must
+be equal byte for byte.  The CUDA kernels themselves are held against
+the plain versions in ``tests/test_torch_cuda.py`` (GPU only).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import compress as RC  # noqa: E402
+from repro.core import dbits as RD  # noqa: E402
+from repro.kernels.bitonic import ops as r_bitonic  # noqa: E402
+from repro.kernels.build import ops as r_build  # noqa: E402
+from repro.kernels.lookup import ops as r_lookup  # noqa: E402
+from repro.kernels.pext import ops as r_pext  # noqa: E402
+from repro_torch.core import compress as TC  # noqa: E402
+from repro_torch.core.u32 import to_carrier, to_u32  # noqa: E402
+from repro_torch.kernels.bitonic import block_sort_plain  # noqa: E402
+from repro_torch.kernels.bitonic.ref import block_sort_ref  # noqa: E402
+from repro_torch.kernels.build import pk_windows, pk_windows_plain  # noqa: E402
+from repro_torch.kernels.build.ref import pk_windows_ref  # noqa: E402
+from repro_torch.kernels.lookup import probe, probe_plain  # noqa: E402
+from repro_torch.kernels.lookup.ref import probe_ref  # noqa: E402
+from repro_torch.kernels.pext import pext, pext_plain  # noqa: E402
+from repro_torch.kernels.pext.ref import pext_ref  # noqa: E402
+
+r_dbitmap = jax.jit(RD.compute_dbitmap)
+
+
+def _keys(seed, n, w, mask=0xFFFFFFFF):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 2**32, size=(n, w), dtype=np.uint32) & np.uint32(mask)
+
+
+def _t(a, device="cpu"):
+    return to_carrier(np.asarray(a), device)
+
+
+def _starts(seed, m, w):
+    """Window starts: random, on word boundaries (sh == 0), in the last
+    word, and outside the key (clipped)."""
+    rng = np.random.default_rng(seed)
+    top = w * 32
+    return rng.permutation(np.concatenate([
+        rng.integers(-40, top + 40, size=m - m // 2),
+        32 * rng.integers(0, w, size=m // 4),
+        top - 1 - rng.integers(0, 32, size=m // 2 - m // 4),
+    ]))
+
+
+# ---------------------------------------------------------------------------
+# pext
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n,w,mask", [(64, 1, 0x3FC0FF03), (255, 3, 0x3FC0FF03),
+                                      (257, 16, 0x0F0F0F0F)])
+def test_pext_plain_matches_reference_kernel(n, w, mask):
+    words = _keys(n + w, n, w, mask)
+    bm = np.asarray(r_dbitmap(jnp.asarray(words)))
+    rplan, tplan = RC.make_plan(bm, w), TC.make_plan(bm, w)
+    want = np.asarray(r_pext.pext(jnp.asarray(words), rplan, tile=256, interpret=True))
+    got = to_u32(pext_plain(_t(words), tplan))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(pext_ref(words, tplan), want)
+
+
+def test_pext_plain_wide_keys_matches_reference():
+    """512-byte keys (128 words), the paper's ExURL maximum; the reference
+    kernel's oracle is ``extract_bits`` (its interpret run of this shape
+    is ``tests/test_kernels.py::test_pext_wide_keys``)."""
+    words = _keys(9, 300, 128, 0x01010101)
+    bm = np.asarray(r_dbitmap(jnp.asarray(words)))
+    rplan, tplan = RC.make_plan(bm, 128), TC.make_plan(bm, 128)
+    want = np.asarray(RC.extract_bits(jnp.asarray(words), rplan))
+    np.testing.assert_array_equal(to_u32(pext(_t(words), tplan)), want)
+    np.testing.assert_array_equal(pext_ref(words, tplan), want)
+
+
+# ---------------------------------------------------------------------------
+# bitonic block sort (the network is unstable: equality with the reference
+# kernel, rows included, needs the same network lane for lane)
+# ---------------------------------------------------------------------------
+
+
+def _bitonic_case(kind, n, w):
+    if kind == "dup":
+        return np.repeat(_keys(n, -(-n // 4), w, 0x000000FF), 4, axis=0)[:n]
+    if kind == "ones":
+        return np.full((n, w), 0xFFFFFFFF, np.uint32)
+    return _keys(n * w, n, w, 0xFFFF00FF)
+
+
+@pytest.mark.parametrize("kind,n,w,block", [
+    ("rand", 255, 2, 64), ("dup", 255, 2, 64), ("ones", 255, 2, 64), ("dup", 257, 4, 128),
+])
+def test_bitonic_plain_matches_reference_kernel(kind, n, w, block):
+    words = _bitonic_case(kind, n, w)
+    rows = np.random.default_rng(n).permutation(n).astype(np.uint32)
+    rk, rr = r_bitonic.block_sort(jnp.asarray(words), jnp.asarray(rows),
+                                  block=block, interpret=True)
+    tk, tr = block_sort_plain(_t(words), _t(rows), block=block)
+    np.testing.assert_array_equal(to_u32(tk), np.asarray(rk))
+    np.testing.assert_array_equal(to_u32(tr), np.asarray(rr))
+    # against the stable numpy oracle: same keys per block, same pairs
+    ok, _ = block_sort_ref(words, rows, block)
+    np.testing.assert_array_equal(to_u32(tk), ok)
+    key_of_row = dict(zip(rows.tolist(), map(tuple, words)))
+    assert [key_of_row[r] for r in to_u32(tr).tolist()] == list(map(tuple, to_u32(tk)))
+
+
+# ---------------------------------------------------------------------------
+# pk-window and probe
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("m,w", [(1000, 4), (513, 1), (300, 16)])
+@pytest.mark.parametrize("pk", [1, 16, 32])
+def test_pk_window_plain_matches_reference_kernel(m, w, pk):
+    words = _keys(m * w, m, w)
+    starts = _starts(m + pk, m, w)
+    want = np.asarray(r_build.pk_windows(jnp.asarray(words), jnp.asarray(starts, jnp.int32),
+                                         pk, tile=128, interpret=True))
+    got = to_u32(pk_windows(_t(words), torch.as_tensor(starts), pk))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(pk_windows_ref(words, starts, pk), want)
+
+
+@pytest.mark.parametrize("q,w,n_leaves,lc,pk", [(200, 4, 30, 12, 16), (64, 2, 7, 3, 32),
+                                                (77, 16, 11, 12, 16)])
+def test_probe_plain_matches_reference_kernel(q, w, n_leaves, lc, pk):
+    """The port's probe takes (query, leaf node) and gathers per pair; the
+    reference kernel takes the materialized pair arrays.  Same mask."""
+    rng = np.random.default_rng(q)
+    queries = _keys(q + 1, q, w)
+    node = rng.integers(0, n_leaves, size=q)
+    dpos = _starts(q + 2, n_leaves * lc, w).reshape(n_leaves, lc) - 1
+    flat_q = np.repeat(queries, lc, axis=0)
+    flat_starts = (dpos[node] + 1).reshape(-1)
+    windows = pk_windows_ref(flat_q, flat_starts, pk).reshape(q, lc)
+    leaf_pk = _keys(q + 3, n_leaves, lc, (1 << pk) - 1)
+    leaf_pk[node[: q // 2]] = windows[: q // 2]  # about half the pairs match
+    want = np.asarray(r_lookup.probe(
+        jnp.asarray(flat_q), jnp.asarray(flat_starts, jnp.int32),
+        jnp.asarray(leaf_pk[node].reshape(-1)), pk, tile=128, interpret=True,
+    )).reshape(q, lc)
+    got = probe(_t(queries), torch.as_tensor(node), torch.as_tensor(dpos),
+                _t(leaf_pk), pk).numpy()
+    assert want.any()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        probe_ref(flat_q, flat_starts, leaf_pk[node].reshape(-1), pk).reshape(q, lc), want)
