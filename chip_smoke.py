@@ -11,20 +11,36 @@ device or any phase fails:
 1. build: compile the CUDA kernels from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, in parallel) and load them;
 2. kernels vs plain versions, byte for byte, at edge shapes: n not a tile
-   multiple, 128-word keys (pext), duplicate and all-ones keys (bitonic),
-   windows starting on a word boundary and in the last word (pk-window,
-   probe);
+   multiple, 128-word keys (pext, merge-rank, dbit), duplicate and
+   all-ones keys (bitonic, merge-rank), searched runs of 1 and 2^k±1 rows
+   and pad rows of both reserved ranges (merge-rank), windows starting on
+   a word boundary and in the last word (pk-window, probe), equal pairs
+   and pairs that differ in the last bit only (dbit);
 3. the slice: ``ReconstructionPipeline(backend="cuda").run`` on the
    paper's Zipf(s=1.5, n=64 bytes, m=0) keys (§6.3, Table 4 dataset 15)
    at 10M keys, rows shuffled by a seeded permutation, rids = row index;
-   run twice (the second is timed) plus the full-key baseline, checked
-   against the plain ``"torch"`` backend on the same card;
+   unchunked (one 2^24 sort bucket), run twice (the second is timed) plus
+   the full-key baseline, checked against the plain ``"torch"`` backend
+   on the same card;
 4. lookups: four batches of 2^18 queries, half hits and half misses,
    then one more run and lookup batch traced with ``torch.profiler``
    (device time by kernel, idle share of the window);
-5. kernel report: each kernel's launches on the main path (phases 3-4),
-   its time at the main path's shapes, its plain version's time and the
-   least time the card could take for the same bytes and operations.
+5. chunked: the same keys through the pipeline's defaults (chunks of
+   2^17 folded by the merge ladder above 2^19 keys), run twice, equal to
+   phase 3's unchunked run byte for byte;
+   then ``tune_chunking`` measures this card's sort and merge costs and
+   picks a chunk plan at the 2^24 bucket; a pipeline with that plan and
+   ``async_dispatch`` (one synchronize per run) rebuilds the same keys,
+   timed, and once more with ``stage_timings=True``; both equal phase 3;
+6. incremental: a replica whose metadata already covers the delta folds
+   1 % fresh keys and 1 % deletes into its previous result
+   (``run_incremental``), equal to a full run over the folded set and to
+   the ``"torch"`` backend; then a change set with a changed D-bitmap
+   (falls back to the full run) and an empty one (no-op);
+7. kernel report: each kernel's launches on the main paths (phases 3, 5
+   and 6, each counted from 0), its time at the main path's shapes, its
+   plain version's time and the least time the card could take for the
+   same bytes and operations.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -32,10 +48,12 @@ The last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -50,15 +68,20 @@ from repro_torch.configs.paper_index import ZipfConfig  # noqa: E402
 from repro_torch.core import plancache  # noqa: E402
 from repro_torch.core.btree import NOT_FOUND_RID, _descend  # noqa: E402
 from repro_torch.core.compress import make_plan  # noqa: E402
-from repro_torch.core.dbits import compute_dbitmap, lex_less  # noqa: E402
+from repro_torch.core.dbits import (  # noqa: E402
+    NO_DBIT, compute_dbitmap, lex_less, sort_words, sort_words_keyed)
 from repro_torch.core.keyformat import KeySet  # noqa: E402
-from repro_torch.core.pipeline import ReconstructionPipeline  # noqa: E402
+from repro_torch.core.metadata import meta_from_keys  # noqa: E402
+from repro_torch.core.pipeline import ReconstructionPipeline, fold_keyset  # noqa: E402
 from repro_torch.core.u32 import to_carrier, to_u32  # noqa: E402
 from repro_torch.data.synthetic import zipf_keys  # noqa: E402
 from repro_torch.kernels import cudalib  # noqa: E402
 from repro_torch.kernels.bitonic import DEFAULT_BLOCK, block_sort, block_sort_plain  # noqa: E402
 from repro_torch.kernels.build import pk_windows, pk_windows_plain  # noqa: E402
+from repro_torch.kernels.dbit import adjacent_dbits, adjacent_dbits_plain  # noqa: E402
 from repro_torch.kernels.lookup import probe, probe_plain  # noqa: E402
+from repro_torch.kernels.merge import merge_ranks, merge_ranks_plain  # noqa: E402
+from repro_torch.kernels.merge import ops as merge_ops  # noqa: E402
 from repro_torch.kernels.pext import pext, pext_plain  # noqa: E402
 
 #: H100 SXM HBM3 rate (NVIDIA data sheet), for the bytes bound
@@ -77,6 +100,15 @@ KERNELS = {
     "pk_window": ("src/repro_torch/csrc/pk_window.cu",
                   "src/repro/kernels/build/kernel.py:38"),
     "probe": ("src/repro_torch/csrc/probe.cu", "src/repro/kernels/lookup/kernel.py:36"),
+    "merge_rank": ("src/repro_torch/csrc/merge_rank.cu",
+                   "src/repro/kernels/merge/kernel.py:45"),
+    "dbit": ("src/repro_torch/csrc/dbit.cu", "src/repro/kernels/dbit/kernel.py:27"),
+}
+#: kernels each main path must launch
+PATH_KERNELS = {
+    "slice": ("pext", "bitonic_block_sort", "pk_window", "probe", "dbit"),
+    "chunked": ("pext", "bitonic_block_sort", "merge_rank", "pk_window", "dbit"),
+    "incremental": ("pext", "bitonic_block_sort", "merge_rank", "pk_window", "dbit"),
 }
 
 
@@ -185,6 +217,40 @@ def edge_checks(dev, rng) -> None:
             check(same(got, probe_plain(queries, node, leaf_dpos, leaf_pk, pk)),
                   f"probe kernel != plain at q={q} W={w} pk={pk}")
             check(bool(got.any()), "probe matched nothing")
+    # merge-rank: n_q off any multiple of 256; searched runs of 1, 2^k - 1
+    # and 2^k + 1 rows; duplicate keys whose ties fall to the row word;
+    # 128-word keys
+    def sorted_run(n, w, mask, row_base):
+        keys = to_carrier(rand_words(rng, n, w, mask), dev)
+        return sort_words_keyed(keys, row_base + torch.as_tensor(rng.permutation(n), device=dev))
+
+    for n_q, n_s, w, mask in [(1000, 4097, 3, 0x0F0F0F0F), (777, 1, 4, 0xFF),
+                              (5003, 4095, 4, 0xFF), (300, 65537, 2, 0x3),
+                              (129, 300, 128, 0x1)]:
+        keys_s, rows_s = sorted_run(n_s, w, mask, 0)
+        keys_q, rows_q = sorted_run(n_q, w, mask, n_s)
+        check(same(merge_ranks(keys_q, rows_q, keys_s, rows_s),
+                   merge_ranks_plain(keys_q, rows_q, keys_s, rows_s)),
+              f"merge-rank kernel != plain at n_q={n_q} n_s={n_s} W={w}")
+    # all-ones keys against pad rows of both reserved ranges
+    ones = torch.full((2048, 2), plancache.SENTINEL, dtype=torch.int64, device=dev)
+    lane = torch.arange(1024, device=dev)
+    rows_s = torch.cat([lane, plancache.ROW_PAD_A + lane])
+    rows_q = torch.cat([lane[:300] + 1024, plancache.ROW_PAD_B + lane[:700]])
+    check(same(merge_ranks(ones[:1000], rows_q, ones, rows_s),
+               merge_ranks_plain(ones[:1000], rows_q, ones, rows_s)),
+          "merge-rank kernel != plain on all-ones keys and pad rows")
+    # dbit: equal pairs, a pair that differs in the last bit of the last
+    # word only, 128-word keys
+    for n, w, mask in [(5003, 3, 0x00FF00FF), (300, 128, 0x01010101), (4097, 16, 0x3)]:
+        keys = sort_words(to_carrier(rand_words(rng, n, w, mask), dev))[0]
+        keys[n // 2] = keys[n // 2 - 1]
+        keys[3] = keys[2]
+        keys[3, -1] ^= 1
+        got = adjacent_dbits(keys)
+        check(same(got, adjacent_dbits_plain(keys)), f"dbit kernel != plain at n={n} W={w}")
+        check(int(got[2]) == 32 * w - 1 and int(got[n // 2 - 1]) == NO_DBIT,
+              f"dbit kernel misses the last-bit or the equal pair at W={w}")
 
 
 # ---------------------------------------------------------------------------
@@ -197,6 +263,69 @@ def tree_arrays(tree) -> dict:
         out.update({f"level{i}.{k}": v for k, v in level.items()})
     out["sorted_full"] = tree.sorted_full
     out["sorted_rids"] = tree.sorted_rids
+    return out
+
+
+def results_equal(got, want, what: str) -> None:
+    """Fail unless two results agree byte for byte: sorted run, row and
+    rid permutations, every tree array and the refreshed meta."""
+    for name in ("comp_sorted", "row_sorted", "rid_sorted"):
+        check(same(getattr(got, name), getattr(want, name)), f"{what}: {name} differs")
+    got_arrays, want_arrays = tree_arrays(got.tree), tree_arrays(want.tree)
+    check(got_arrays.keys() == want_arrays.keys(), f"{what}: tree shapes differ")
+    for key in got_arrays:
+        check(same(got_arrays[key], want_arrays[key]), f"{what}: tree {key} differs")
+    for field in ("dbitmap", "varbitmap", "refkey"):
+        check(np.array_equal(getattr(got.meta, field), getattr(want.meta, field)),
+              f"{what}: meta.{field} differs")
+
+
+def check_launches(path: str, launches: dict) -> None:
+    for name in PATH_KERNELS[path]:
+        check(launches[name] > 0, f"the {path} path never launched the {name} kernel")
+
+
+@contextmanager
+def largest_rank_pass():
+    """Record the inputs of the largest ``merge_ranks`` call (by query
+    plus searched rows) made inside the block: the rank pass of the
+    largest merge.  The call itself runs unchanged."""
+    seen: dict = {}
+    orig = merge_ops.merge_ranks
+
+    def spy(keys_q, rows_q, keys_s, rows_s):
+        rows = int(keys_q.shape[0]) + int(keys_s.shape[0])
+        if rows > seen.get("rows", -1):
+            seen.update(rows=rows, args=(keys_q, rows_q, keys_s, rows_s))
+        return orig(keys_q, rows_q, keys_s, rows_s)
+
+    merge_ops.merge_ranks = spy
+    try:
+        yield seen
+    finally:
+        merge_ops.merge_ranks = orig
+
+
+def rows_in(words: np.ndarray, table: np.ndarray) -> np.ndarray:
+    """Which rows of ``words`` equal a row of ``table``, exactly; a 64-bit
+    polynomial hash of each row narrows the candidates."""
+    def row_hash(a):
+        h = np.zeros(a.shape[0], np.uint64)
+        for col in a.T:  # wraps modulo 2**64
+            h = h * np.uint64(0x100000001B3) + col.astype(np.uint64)
+        return h
+
+    th = row_hash(table)
+    order = np.argsort(th)
+    th = th[order]
+    wh = row_hash(words)
+    idx = np.searchsorted(th, wh)
+    out = np.zeros(words.shape[0], bool)
+    for i in np.flatnonzero(th[np.minimum(idx, th.size - 1)] == wh):
+        j = idx[i]
+        while j < th.size and th[j] == wh[i] and not out[i]:
+            out[i] = np.array_equal(table[order[j]], words[i])
+            j += 1
     return out
 
 
@@ -276,8 +405,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     edge_checks(dev, rng)
     torch.cuda.synchronize()
-    print(f"[kernels] pext, bitonic, pk-window, probe == plain at edge shapes "
-          f"({time.perf_counter() - t0:.2f} s)", flush=True)
+    print(f"[kernels] pext, bitonic, pk-window, probe, merge-rank, dbit == plain at "
+          f"edge shapes ({time.perf_counter() - t0:.2f} s)", flush=True)
 
     # -- 3. the slice --------------------------------------------------------
     t0 = time.perf_counter()
@@ -286,11 +415,11 @@ def main(argv=None) -> int:
     n = ks.n
     keyset = KeySet(words=ks.words[perm], lengths=ks.lengths[perm],
                     rids=np.arange(n, dtype=np.uint32))
+    del ks
     print(f"[data] Zipf(1.5, 64, 0): {n} unique keys of {keyset.n_words} words "
           f"({args.n_keys} drawn) in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # one sort bucket for the whole set: the chunked sort (and its merge
-    # kernel) belongs to a later slice
+    # one sort bucket for the whole set: the comparison point of phase 5
     threshold = 1 << 24
     pipe = ReconstructionPipeline(backend="cuda", chunk_threshold=threshold, device=dev)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -313,10 +442,9 @@ def main(argv=None) -> int:
         answers.append(pipe.backend.lookup(res.tree, q))
         torch.cuda.synchronize()
         t_lookup.append(time.perf_counter() - t1)
-    launches = dict(cudalib.LAUNCHES)
+    launches = {"slice": dict(cudalib.LAUNCHES)}
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
-    for name, count in launches.items():
-        check(count > 0, f"the main path never launched the {name} kernel")
+    check_launches("slice", launches["slice"])
 
     st, tm, ft = res.stats, res.timings, full.timings
     slice_line = {
@@ -332,6 +460,7 @@ def main(argv=None) -> int:
         "sort_ratio_full_over_comp": ft["sort"] / tm["sort"],
         "lookup_batch_s": t_lookup,
         "peak_mem_gib": peak_gib,
+        "launches": launches["slice"],
     }
     print(f"[slice] {json.dumps(slice_line)}", flush=True)
 
@@ -339,23 +468,13 @@ def main(argv=None) -> int:
     keyed = torch.cat([res.comp_sorted, res.row_sorted[:, None]], dim=1)
     check(bool(lex_less(keyed[:-1], keyed[1:]).all()),
           "comp_sorted is not ascending in (key, row)")
+    del keyed
     check(same(torch.sort(res.rid_sorted).values, torch.arange(n, device=dev)),
           "rid_sorted is not a permutation")
     ref_pipe = ReconstructionPipeline(backend="torch", chunk_threshold=threshold, device=dev)
-    ref = ref_pipe.run(keyset)
-    for name in ("comp_sorted", "row_sorted", "rid_sorted"):
-        check(same(getattr(res, name), getattr(ref, name)), f"{name} differs from torch")
-    got_arrays, ref_arrays = tree_arrays(res.tree), tree_arrays(ref.tree)
-    check(got_arrays.keys() == ref_arrays.keys(), "tree shapes differ from torch")
-    for key in got_arrays:
-        check(same(got_arrays[key], ref_arrays[key]), f"tree {key} differs from torch")
-    for field in ("dbitmap", "varbitmap", "refkey"):
-        check(np.array_equal(getattr(res.meta, field), getattr(ref.meta, field)),
-              f"meta.{field} differs from torch")
-    ref_full = ref_pipe.run(keyset, full_keys=True)
-    for key, val in tree_arrays(full.tree).items():
-        check(same(val, tree_arrays(ref_full.tree)[key]), f"full-key tree {key} differs")
-    del ref, ref_full, ref_arrays
+    results_equal(res, ref_pipe.run(keyset), "cuda vs torch")
+    results_equal(full, ref_pipe.run(keyset, full_keys=True), "full keys, cuda vs torch")
+    del full, ref_pipe
     print("[slice] sorted run, permutation, tree and meta == torch backend", flush=True)
 
     # -- 4. lookups ------------------------------------------------------------
@@ -372,7 +491,132 @@ def main(argv=None) -> int:
                            args.log_dir)
     print(f"[profile] {json.dumps(traced)}", flush=True)
 
-    # -- 5. kernel report at the main path's shapes ---------------------------
+    # -- 5. chunked: the pipeline's defaults, against phase 3's run -------------
+    pipe_c = ReconstructionPipeline(backend="cuda", device=dev)
+    if n <= pipe_c.chunk_threshold:  # a short call (--n-keys): scale the ladder down
+        pipe_c.chunk_threshold = plancache.bucket(n) // 4
+        pipe_c.chunk_size = pipe_c.chunk_threshold // 4
+    pipe_c.run(keyset)
+    cudalib.reset_launches()
+    with largest_rank_pass() as cascade_rank:
+        t1 = time.perf_counter()
+        res_c = pipe_c.run(keyset)
+        chunked_wall = time.perf_counter() - t1
+    launches["chunked"] = dict(cudalib.LAUNCHES)
+    check_launches("chunked", launches["chunked"])
+    st = res_c.stats
+    check(st["chunked"] == -(-n // pipe_c.chunk_size),
+          f"{st['chunked']} chunks for {n} keys in chunks of {pipe_c.chunk_size}")
+    check(st["cascade_merges"] == st["chunked"] - 1, "the ladder did not merge every chunk")
+    results_equal(res_c, res, "chunked vs unchunked")
+    chunked_line = {
+        "chunk_size": pipe_c.chunk_size, "chunk_threshold": pipe_c.chunk_threshold,
+        **{k: st[k] for k in ("chunked", "cascade_merges", "cascade_peak_live_runs")},
+        "timings_s": {k: res_c.timings[k] for k in ("meta", "extract", "sort", "build",
+                                                    "refresh_meta", "total")},
+        "run_wall_s": chunked_wall, "unchunked_run_wall_s": run_wall,
+        "launches": launches["chunked"],
+    }
+    print(f"[chunked] {json.dumps(chunked_line)}", flush=True)
+    print("[chunked] sorted run, permutation, tree and meta == the unchunked run", flush=True)
+    del res_c
+
+    # the chunk plan this card's measured costs pick at the 2^24 bucket,
+    # run with one synchronize per run (async_dispatch)
+    pipe_t = ReconstructionPipeline(backend="cuda", device=dev, async_dispatch=True)
+    t0 = time.perf_counter()
+    plan_t = pipe_t.tune_chunking(ref_n=plancache.bucket(n),
+                                  n_words=int(res.comp_sorted.shape[1]), iters=3)
+    tune_s = time.perf_counter() - t0
+    pipe_t.run(keyset)
+    t1 = time.perf_counter()
+    res_t = pipe_t.run(keyset)
+    tuned_wall = time.perf_counter() - t1
+    check(res_t.stats["async_dispatch"] is True, "async_dispatch synchronized every stage")
+    results_equal(res_t, res, "tuned, async vs unchunked")
+    res_t = pipe_t.run(keyset, stage_timings=True)
+    results_equal(res_t, res, "tuned, stage barriers vs unchunked")
+    tuned_line = {
+        "chunk_size": plan_t.chunk_size, "chunk_threshold": plan_t.chunk_threshold,
+        "ref_n": plan_t.ref_n, "n_words": plan_t.n_words, "tune_s": tune_s,
+        **{k: getattr(plan_t, k) for k in ("sort_cold", "sort_warm", "merge_cold",
+                                           "merge_warm")},
+        "chunked": res_t.stats["chunked"], "async_run_wall_s": tuned_wall,
+        "timings_s": {k: res_t.timings[k] for k in ("meta", "extract", "sort", "build",
+                                                    "refresh_meta", "total")},
+    }
+    print(f"[tuned] {json.dumps(tuned_line)}", flush=True)
+    print("[tuned] async and stage-barrier runs at the measured plan == the unchunked run",
+          flush=True)
+    del res_t, pipe_t
+
+    # -- 6. incremental: a replica folds 1 % inserts and 1 % deletes ----------
+    t0 = time.perf_counter()
+    dk = zipf_keys(ZipfConfig(1.5, 64, 0, max(n // 100, 1)), seed=args.seed + 1)
+    fresh = np.flatnonzero(~rows_in(dk.words, keyset.words))
+    fresh = fresh[rng.permutation(fresh.size)]
+    nd = int(fresh.size)
+    delta = KeySet(words=dk.words[fresh], lengths=dk.lengths[fresh],
+                   rids=np.arange(n, n + nd, dtype=np.uint32))
+    keep = rng.random(n) >= 0.01
+    # the replica's metadata already covers the delta's keys (union meta)
+    meta = meta_from_keys(np.concatenate([keyset.words, delta.words]), dev)
+    print(f"[incremental] delta of {nd} fresh keys ({dk.n - nd} equal a base key), "
+          f"{n - int(keep.sum())} deletes, prepared in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    del dk
+    prev = pipe_c.run(keyset, meta=meta)
+    pipe_c.run_incremental(prev, keyset, delta, keep_rows=keep, meta=meta)
+    cudalib.reset_launches()
+    with largest_rank_pass() as delta_rank:
+        t1 = time.perf_counter()
+        inc, folded = pipe_c.run_incremental(prev, keyset, delta, keep_rows=keep, meta=meta)
+        inc_wall = time.perf_counter() - t1
+    launches["incremental"] = dict(cudalib.LAUNCHES)
+    check_launches("incremental", launches["incremental"])
+    check(inc.stats["incremental"] is True, "run_incremental fell back to the full run")
+    check(inc.stats["n_delta"] == nd and inc.stats["n_deleted"] == n - int(keep.sum()),
+          "run_incremental counted the change set wrong")
+    t1 = time.perf_counter()
+    fold_keyset(keyset, keep, delta)  # the host fold inside run_incremental, alone
+    fold_wall = time.perf_counter() - t1
+    pipe_c.run(folded, meta=meta)
+    t1 = time.perf_counter()
+    full_inc = pipe_c.run(folded, meta=meta)
+    folded_wall = time.perf_counter() - t1
+    results_equal(inc, full_inc, "incremental vs full run over the folded set")
+    del full_inc
+    torch_pipe = ReconstructionPipeline(backend="torch", device=dev)
+    results_equal(inc, torch_pipe.run_incremental(
+        torch_pipe.run(keyset, meta=meta), keyset, delta, keep_rows=keep, meta=meta)[0],
+        "incremental, cuda vs torch")
+    del torch_pipe
+    # a D-bitmap that moved: one more (constant) bit is still a valid plan
+    zero_bits = np.flatnonzero(np.unpackbits(meta.dbitmap.astype(">u4").view(np.uint8)) == 0)
+    grown = meta.dbitmap.copy()
+    grown[zero_bits[0] // 32] |= np.uint32(1 << (31 - zero_bits[0] % 32))
+    meta_x = dataclasses.replace(meta, dbitmap=grown)
+    moved, _ = pipe_c.run_incremental(prev, keyset, delta, keep_rows=keep, meta=meta_x)
+    check(moved.stats["incremental"] is False
+          and moved.stats["incremental_fallback"] == "dbitmap_changed",
+          "a changed D-bitmap did not take the full-run fallback")
+    results_equal(moved, pipe_c.run(folded, meta=meta_x), "fallback vs full run")
+    del moved, prev
+    noop, _ = pipe_c.run_incremental(inc, folded, None, meta=meta, watermark=1)
+    check(noop.stats["noop"] is True and noop.comp_sorted is inc.comp_sorted
+          and noop.watermark == 1, "an empty change set was not a no-op")
+    inc_line = {
+        "n_base": n, "n_delta": nd, "n_deleted": inc.stats["n_deleted"],
+        "timings_s": {k: inc.timings[k] for k in ("filter", "extract", "sort", "merge",
+                                                  "build", "refresh_meta", "total")},
+        "run_wall_s": inc_wall, "fold_keyset_s": fold_wall, "full_run_wall_s": folded_wall,
+        "launches": launches["incremental"],
+    }
+    print(f"[incremental] {json.dumps(inc_line)}", flush=True)
+    print("[incremental] == full run over the folded set, == torch backend; the changed "
+          "D-bitmap falls back, the empty change set is a no-op", flush=True)
+
+    # -- 7. kernel report at the main paths' shapes ------------------------------
     b = plancache.bucket(n)
     words_dev = plancache.pad_tail(to_carrier(keyset.words, dev), b, plancache.SENTINEL)
     plan = make_plan(res.extract_bitmap, keyset.n_words)
@@ -418,26 +662,67 @@ def main(argv=None) -> int:
                   + slots * 2 * 4 + BATCH * lc,
                   BATCH * lc * 7),
     }
-    report = []
-    for name, (kernel_fn, plain_fn, n_bytes, n_ops) in cases.items():
+
+    def rank_shape(rank_args) -> dict:
+        return {"n_q": int(rank_args[0].shape[0]), "n_s": int(rank_args[2].shape[0]),
+                "words": int(rank_args[0].shape[1]) + 1}
+
+    def rank_case(rank_args):
+        """(kernel, plain, bytes, operations) of one rank pass: each query
+        row read once, one int32 written per query, and each searched row
+        a search can probe read once; a ceil(log2(n_s + 1))-step search
+        comparing up to Wc + 1 words (load and compare) per step.  Step l
+        of n_q binary searches probes at most min(2^l, n_q) distinct rows
+        of the searched run, whatever the queries."""
+        shape = rank_shape(rank_args)
+        n_q, n_s, words = shape["n_q"], shape["n_s"], shape["words"]
+        steps = n_s.bit_length()
+        probed = min(n_s, sum(min(1 << lvl, n_q) for lvl in range(steps)))
+        return (lambda: merge_ranks(*rank_args), lambda: merge_ranks_plain(*rank_args),
+                (n_q + probed) * words * 4 + n_q * 4, n_q * steps * 2 * words)
+
+    # the dbit pass over the compressed run of the 2^24 bucket: one read of
+    # each key and one int32 per pair; xor, test and branch for each word
+    # up to the first that differs, and one clz
+    dpos = adjacent_dbits(res.comp_sorted)
+    dbit_words = torch.where(dpos == NO_DBIT, wc, dpos // 32 + 1)
+    cases["merge_rank"] = rank_case(cascade_rank["args"])
+    cases["dbit"] = (lambda: adjacent_dbits(res.comp_sorted),
+                     lambda: adjacent_dbits_plain(res.comp_sorted),
+                     n * wc * 4 + (n - 1) * 4, 3 * int(dbit_words.sum()) + (n - 1))
+    del dpos, dbit_words
+
+    def measure(kernel_fn, plain_fn, n_bytes, n_ops, what):
         got, want = kernel_fn(), plain_fn()
         got, want = (got if isinstance(got, tuple) else (got,)), \
             (want if isinstance(want, tuple) else (want,))
         match = all(same(g, p) for g, p in zip(got, want))
         err = max(float((g.to(torch.int64) - p.to(torch.int64)).abs().max()) if g.numel() else 0.0
                   for g, p in zip(got, want))
-        check(match, f"{name} kernel != plain at the main path's shapes")
-        source, replaces = KERNELS[name]
+        check(match, f"{what} kernel != plain at the main path's shapes")
         bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
         ops_ms = n_ops / PEAK_OPS_PER_S * 1e3
-        report.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": err,
-            "ms": cuda_ms(kernel_fn, args.reps), "plain_ms": cuda_ms(plain_fn, 3),
-            "bound_ms": max(bytes_ms, ops_ms),
+        return {
+            "max_abs_err": err, "ms": cuda_ms(kernel_fn, args.reps),
+            "plain_ms": cuda_ms(plain_fn, 3), "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None, "match": match,
-        })
+        }
+
+    report = []
+    for name, case in cases.items():
+        source, replaces = KERNELS[name]
+        entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                 "launches": sum(path[name] for path in launches.values())}
+        entry.update(measure(*case, name))
+        report.append(entry)
+    # merge_rank at its two shapes: the rank pass of the largest cascade
+    # merge (the entry's own numbers) and that of the incremental merge
+    merge_entry = next(e for e in report if e["name"] == "merge_rank")
+    merge_entry["shape"] = rank_shape(cascade_rank["args"])
+    merge_entry["at_incremental_merge"] = {
+        "shape": rank_shape(delta_rank["args"]),
+        **measure(*rank_case(delta_rank["args"]), "merge_rank (incremental)")}
     del comp, comp_m, rows_m, words_dev
     print(json.dumps({"kernels": report}), flush=True)
     print(card_line(), flush=True)

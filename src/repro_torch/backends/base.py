@@ -25,10 +25,13 @@ Every backend runs on one ``device``: CUDA unless the caller passes
 another (``device="cpu"`` runs the plain versions on the host).  With no
 GPU and no explicit device, construction raises.
 
-Ops of later slices of the port — ``merge_sorted`` (incremental and
-chunked rebuilds), ``fused_extract_sort``, ``batched_extract_sort``
-(``run_many``) and ``lookup_many`` (multi-tenant) — raise
-``NotImplementedError`` naming their ROADMAP item.
+``merge_sorted`` (the chunked sort's ladder and ``run_incremental``)
+shares the contract: the merge of two ascending (key, row) runs is
+byte-identical to ``sort`` over their concatenation.
+
+Ops of later slices of the port — ``fused_extract_sort``,
+``batched_extract_sort`` (``run_many``) and ``lookup_many``
+(multi-tenant) — raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -93,6 +96,9 @@ class ExecutionBackend(abc.ABC):
 
     name: str = "?"
 
+    #: the adjacent-D-bit pass of ``refresh_meta`` (None: the plain pass)
+    dbit_fn: Callable | None = None
+
     def __init__(self, device=None) -> None:
         self.device = resolve_device(device)
         self.last_info: dict = {}
@@ -116,6 +122,27 @@ class ExecutionBackend(abc.ABC):
         last).  ``keep_padded`` returns the bucket-shaped outputs so the
         pipeline chains into the build without slicing.
         """
+
+    # -------------------------------------------------------------- merge
+    def merge_sorted(
+        self, keys_a: torch.Tensor, rows_a: torch.Tensor,
+        keys_b: torch.Tensor, rows_b: torch.Tensor, *,
+        n_valid_a: int | None = None, n_valid_b: int | None = None,
+        keep_padded: bool = False,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Merge two ascending (key, row) runs into one.
+
+        Byte-identical to ``sort`` over the concatenated inputs; rows must
+        be distinct across both runs.  The default is the plain rank pass
+        and complement scatter, bucketed (``plancache.merge_padded``).
+        ``n_valid_a``/``n_valid_b`` mark the runs as bucket-shaped with
+        that many valid rows; ``keep_padded`` returns the full
+        ``(ba + bb,)`` outputs with pads at the tail (ladder chaining).
+        """
+        from repro_torch.core.plancache import merge_padded
+
+        return merge_padded(keys_a, rows_a, keys_b, rows_b, n_valid_a=n_valid_a,
+                            n_valid_b=n_valid_b, keep_padded=keep_padded)
 
     # -------------------------------------------------------------- build
     def build(self, comp_sorted, row_sorted, meta, words, lengths, config,
@@ -143,21 +170,18 @@ class ExecutionBackend(abc.ABC):
         """Stage 4 (§4.3): recompute DS-metadata at the opportune time.
 
         The adjacent D-bit positions of the sorted run are computed on the
-        device; only that (n-1,) vector crosses to the host, where one
-        vectorized scatter-OR sets the bitmap words (``meta_on_rebuild``).
+        device (by ``dbit_fn``); only that (n-1,) vector crosses to the
+        host, where one vectorized scatter-OR sets the bitmap words
+        (``meta_on_rebuild``).
         """
         from repro_torch.core.metadata import meta_on_rebuild
         from repro_torch.core.plancache import adjacent_dpos_padded
 
-        dpos = adjacent_dpos_padded(comp_sorted, n_valid=n_valid)
+        dpos = adjacent_dpos_padded(comp_sorted, n_valid=n_valid, impl=self.dbit_fn)
         comp_unused = np.zeros((0, int(comp_sorted.shape[1])), np.uint32)
         return meta_on_rebuild(comp_unused, meta, np.asarray(ref_key), dpos_comp=dpos)
 
     # ------------------------------------------------ later slices (raise)
-    def merge_sorted(self, *args, **kwargs):
-        """Merge two ascending (key, row) runs — not ported yet."""
-        raise not_ported("merge_sorted", "Queue 1 item 5, Queue 2 item 6")
-
     def fused_extract_sort(self, *args, **kwargs):
         """extract+sort as one program — not ported yet."""
         raise not_ported("fused_extract_sort", "Queue 1 item 9")

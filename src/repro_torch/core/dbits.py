@@ -13,8 +13,9 @@ MSB, the paper's numbering).
 
 ``compute_dbitmap`` therefore looks only at adjacent keys of the sorted
 input.  The merge primitives (``rank_in_sorted_keyed``,
-``merge_from_ranks``) belong to the incremental path, which the port has
-not reached yet (ROADMAP Queue 1 item 5).
+``merge_from_ranks``, ``merge_words_keyed``) fold two sorted (key, row)
+runs into one: the chunked sort's merge ladder and ``run_incremental``
+use them.
 """
 
 from __future__ import annotations
@@ -27,6 +28,9 @@ __all__ = [
     "lex_compare_le",
     "sort_words",
     "sort_words_keyed",
+    "rank_in_sorted_keyed",
+    "merge_from_ranks",
+    "merge_words_keyed",
     "adjacent_dbit_positions",
     "dbit_position_pairwise",
     "positions_to_bitmap",
@@ -88,12 +92,114 @@ def sort_words_keyed(
     """Sort (n, W) keys with (n,) rows as the least-significant key word.
 
     The backend determinism contract: ascending (key, row) order whatever
-    the input order.  Returns (keys_sorted, rows_sorted, *payloads_sorted).
+    the input order.  Returns (keys_sorted, rows_sorted, *payloads_sorted),
+    each contiguous: the CUDA kernels downstream take dense rows.
     """
     w = keys.shape[1]
     keyed = torch.cat([keys, rows.to(keys.dtype)[:, None]], dim=1)
     out = sort_words(keyed, *payloads)
-    return (out[0][:, :w], out[0][:, w]) + tuple(out[1:])
+    return (out[0][:, :w].contiguous(), out[0][:, w].contiguous()) + tuple(out[1:])
+
+
+# ---------------------------------------------------------------------------
+# merge of sorted (key, row) runs
+# ---------------------------------------------------------------------------
+
+def _pair_less(keys_a, rows_a, keys_b, rows_b) -> torch.Tensor:
+    """Elementwise ``(key_a, row_a) < (key_b, row_b)`` for (m, W) keys and
+    (m,) rows: lexicographic over the key words, the row as the last word."""
+    lt = rows_a < rows_b
+    for w in range(int(keys_a.shape[1]) - 1, -1, -1):
+        ka, kb = keys_a[:, w], keys_b[:, w]
+        lt = (ka < kb) | ((ka == kb) & lt)
+    return lt
+
+
+def rank_in_sorted_keyed(
+    keys_s: torch.Tensor,
+    rows_s: torch.Tensor,
+    keys_q: torch.Tensor,
+    rows_q: torch.Tensor,
+) -> torch.Tensor:
+    """Rank of each query pair in a sorted run: #{i : (key_s, row_s)_i < q}.
+
+    ``(keys_s, rows_s)`` must be ascending in the (key, row) order of the
+    backend determinism contract; the queries need not be sorted.  The
+    output position of a run element in a two-run merge is its own index
+    plus its rank in the *other* run.  A whole-array binary search of
+    ``bit_length(n_s)`` steps; returns (n_q,) int32.
+    """
+    ns = int(keys_s.shape[0])
+    nq = int(keys_q.shape[0])
+    dev = keys_q.device
+    if ns == 0 or nq == 0:
+        return torch.zeros((nq,), dtype=torch.int32, device=dev)
+    lo = torch.zeros((nq,), dtype=torch.int64, device=dev)
+    hi = torch.full((nq,), ns, dtype=torch.int64, device=dev)
+    for _ in range(max(1, ns.bit_length())):
+        mid = (lo + hi) // 2
+        midc = mid.clamp(max=ns - 1)
+        lt = _pair_less(keys_s[midc], rows_s[midc], keys_q, rows_q) & (mid < ns)
+        lo = torch.where(lt, mid + 1, lo)
+        hi = torch.where(lt, hi, mid)
+    return lo.to(torch.int32)
+
+
+def merge_from_ranks(
+    keys_a: torch.Tensor,
+    rows_a: torch.Tensor,
+    keys_b: torch.Tensor,
+    rows_b: torch.Tensor,
+    rank_fn=None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Merge two ascending (key, row) runs given a rank primitive.
+
+    ``rank_fn(keys_s, rows_s, keys_q, rows_q)`` returns the rank of each
+    query pair in the sorted run (#{s < q}); the default is
+    ``rank_in_sorted_keyed``, the CUDA backend passes its kernel.  Rows
+    must be distinct across the two runs, so the (key, row) order is total
+    and the scatter collision-free.
+
+    One rank pass, not two: the smaller run (``nb <= na`` picks b) is
+    ranked in the larger, which gives its exact output positions; the
+    larger run fills the other slots in its own order, so slot ``p`` holds
+    its element ``p - #{ranked elements before p}`` — one cumsum and one
+    gather.  The output is byte-identical to ``sort_words_keyed`` over the
+    concatenation.
+    """
+    if rank_fn is None:
+        rank_fn = rank_in_sorted_keyed
+    na, nb = int(keys_a.shape[0]), int(keys_b.shape[0])
+    if na == 0:
+        return keys_b, rows_b
+    if nb == 0:
+        return keys_a, rows_a
+    if nb <= na:
+        small_k, small_r, big_k, big_r = keys_b, rows_b, keys_a, rows_a
+    else:
+        small_k, small_r, big_k, big_r = keys_a, rows_a, keys_b, rows_b
+    n_small, n_big = int(small_k.shape[0]), int(big_k.shape[0])
+    n, dev = na + nb, keys_a.device
+    pos_s = torch.arange(n_small, device=dev) + rank_fn(big_k, big_r, small_k, small_r)
+    occ = torch.zeros((n,), dtype=torch.int64, device=dev)
+    occ[pos_s] = 1
+    # number of ranked (small-run) elements strictly before each position
+    before = torch.cumsum(occ, 0) - occ
+    big_idx = (torch.arange(n, device=dev) - before).clamp(0, n_big - 1)
+    keys = big_k[big_idx].index_copy_(0, pos_s, small_k)
+    rows = big_r[big_idx].index_copy_(0, pos_s, small_r)
+    return keys, rows
+
+
+def merge_words_keyed(
+    keys_a: torch.Tensor,
+    rows_a: torch.Tensor,
+    keys_b: torch.Tensor,
+    rows_b: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Merge two runs that are each ascending in (key, row) order with the
+    plain rank pass: the semantics of the backend ``merge_sorted`` op."""
+    return merge_from_ranks(keys_a, rows_a, keys_b, rows_b)
 
 
 # ---------------------------------------------------------------------------

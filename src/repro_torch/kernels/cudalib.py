@@ -28,7 +28,8 @@ __all__ = ["LAUNCHES", "reset_launches", "build", "lib", "launch", "check_tensor
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("pext.cu", "bitonic.cu", "pk_window.cu", "probe.cu")
+SOURCES = ("pext.cu", "bitonic.cu", "pk_window.cu", "probe.cu", "merge_rank.cu",
+           "dbit.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -41,10 +42,13 @@ _SIGNATURES = {
     "repro_bitonic_block_sort": (_P, _P, _P, _P, _L, _I, _I, _I, _P),
     "repro_pk_window": (_P, _P, _P, _L, _I, _I, _P),
     "repro_probe": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _P),
+    "repro_merge_rank": (_P, _P, _P, _P, _P, _L, _L, _I, _P),
+    "repro_dbit": (_P, _P, _L, _I, _P),
 }
 
 #: launches per kernel wrapper since the last :func:`reset_launches`
-LAUNCHES = {"pext": 0, "bitonic_block_sort": 0, "pk_window": 0, "probe": 0}
+LAUNCHES = {"pext": 0, "bitonic_block_sort": 0, "pk_window": 0, "probe": 0,
+            "merge_rank": 0, "dbit": 0}
 
 _lib: ctypes.CDLL | None = None
 #: (seconds, compiler output) of the build this process did, if any

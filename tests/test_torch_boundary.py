@@ -38,7 +38,9 @@ from repro_torch.core.u32 import to_carrier, to_u32  # noqa: E402
 from repro_torch.kernels import cudalib  # noqa: E402
 from repro_torch.kernels.bitonic import block_sort, block_sort_plain  # noqa: E402
 from repro_torch.kernels.build import pk_windows, pk_windows_plain  # noqa: E402
+from repro_torch.kernels.dbit import adjacent_dbits, adjacent_dbits_plain  # noqa: E402
 from repro_torch.kernels.lookup import probe, probe_plain  # noqa: E402
+from repro_torch.kernels.merge import merge_ranks, merge_ranks_plain, merge_sorted  # noqa: E402
 from repro_torch.kernels.pext import pext, pext_plain  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -72,15 +74,18 @@ spec = importlib.util.spec_from_file_location("chip_smoke", {str(ROOT / "chip_sm
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
-print(len(names), bad)
+print(json.dumps([names, bad]))
 """
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                         env=env, cwd=ROOT, timeout=300)
+    out = subprocess.run([sys.executable, "-c", "import json\n" + code], capture_output=True,
+                         text=True, env=env, cwd=ROOT, timeout=300)
     assert out.returncode == 0, out.stderr
-    n_modules, bad = out.stdout.split(maxsplit=1)
-    assert int(n_modules) >= 20
-    assert bad.strip() == "[]"
+    names, bad = json.loads(out.stdout.splitlines()[-1])
+    assert len(names) >= 20
+    for name in ("repro_torch.kernels.merge.ops", "repro_torch.kernels.merge.ref",
+                 "repro_torch.kernels.dbit.ops", "repro_torch.kernels.dbit.ref"):
+        assert name in names
+    assert bad == []
 
 
 def test_sources_name_neither_jax_nor_reference():
@@ -201,10 +206,26 @@ def test_pk_window_and_probe_wrappers_on_cpu_take_plain_versions(no_kernel_libra
                        probe_plain(words[:8], node, dpos, leaf_pk, 16))
 
 
+def test_merge_rank_and_dbit_wrappers_on_cpu_take_plain_versions(no_kernel_library):
+    words = torch.sort(to_carrier(_keyset(n=200, w=1).words, "cpu"), dim=0).values
+    rows = torch.arange(200)
+    keys_a, keys_b = words[::2].contiguous(), words[1::2].contiguous()
+    assert torch.equal(merge_ranks(keys_b, rows[1::2], keys_a, rows[::2]),
+                       merge_ranks_plain(keys_b, rows[1::2], keys_a, rows[::2]))
+    merged, merged_rows = merge_sorted(keys_a, rows[::2], keys_b, rows[1::2])
+    assert torch.equal(merged, words) and torch.equal(merged_rows, rows)
+    assert torch.equal(adjacent_dbits(words), adjacent_dbits_plain(words))
+
+
 def test_cuda_backend_on_cpu_launches_nothing(no_kernel_library):
     ks = _keyset(n=500, w=3, seed=1)
-    res = ReconstructionPipeline(backend="cuda", device="cpu").run(ks)
+    res = ReconstructionPipeline(backend="cuda", device="cpu", chunk_threshold=256,
+                                 chunk_size=128).run(ks)
+    assert res.stats["chunked"] == 4
+    res, folded = ReconstructionPipeline(backend="cuda", device="cpu").run_incremental(
+        res, ks, keep_rows=np.arange(500) % 3 > 0)
+    assert res.stats["incremental"] is True
     found, rid = get_backend("cuda", device="cpu").lookup(
-        res.tree, to_carrier(ks.words[:64], "cpu"))
+        res.tree, to_carrier(folded.words[:64], "cpu"))
     assert bool(found.all())
-    np.testing.assert_array_equal(to_u32(rid), ks.rids[:64])
+    np.testing.assert_array_equal(to_u32(rid), folded.rids[:64])

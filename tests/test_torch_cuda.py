@@ -14,15 +14,18 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.backends import get_backend  # noqa: E402
+from repro_torch.core import plancache  # noqa: E402
 from repro_torch.core.compress import make_plan  # noqa: E402
-from repro_torch.core.dbits import compute_dbitmap  # noqa: E402
+from repro_torch.core.dbits import compute_dbitmap, sort_words_keyed  # noqa: E402
 from repro_torch.core.pipeline import ReconstructionPipeline  # noqa: E402
 from repro_torch.core.u32 import to_carrier, to_u32  # noqa: E402
 from repro_torch.data.synthetic import rows_to_keyset  # noqa: E402
 from repro_torch.kernels import cudalib  # noqa: E402
 from repro_torch.kernels.bitonic import block_sort, block_sort_plain  # noqa: E402
 from repro_torch.kernels.build import pk_windows, pk_windows_plain  # noqa: E402
+from repro_torch.kernels.dbit import adjacent_dbits, adjacent_dbits_plain  # noqa: E402
 from repro_torch.kernels.lookup import probe, probe_plain  # noqa: E402
+from repro_torch.kernels.merge import merge_ranks, merge_ranks_plain  # noqa: E402
 from repro_torch.kernels.pext import pext, pext_plain  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -110,7 +113,11 @@ def test_cuda_backend_matches_torch_backend_on_the_card(dev):
     got = cuda_pipe.run(ks)
     queries = to_carrier(np.concatenate([ks.words[::7], ks.words[::11] ^ np.uint32(1)]), dev)
     found, rid = cuda_pipe.backend.lookup(got.tree, queries)
-    assert all(count > 0 for count in cudalib.LAUNCHES.values()), cudalib.LAUNCHES
+    # every kernel of the unchunked run and its lookup (no merge below the
+    # chunk threshold)
+    on_path = ("pext", "bitonic_block_sort", "pk_window", "probe", "dbit")
+    assert all(cudalib.LAUNCHES[name] > 0 for name in on_path), cudalib.LAUNCHES
+    assert cudalib.LAUNCHES["merge_rank"] == 0
     want = ReconstructionPipeline(backend="torch", device=dev).run(ks)
     assert torch.equal(got.comp_sorted, want.comp_sorted)
     assert torch.equal(got.rid_sorted, want.rid_sorted)
@@ -120,3 +127,72 @@ def test_cuda_backend_matches_torch_backend_on_the_card(dev):
     f_ref, r_ref = get_backend("torch", device=dev).lookup(want.tree, queries)
     assert torch.equal(found, f_ref) and torch.equal(rid, r_ref)
     assert bool(found.any()) and not bool(found.all())
+
+
+def _sorted_run(seed, n, w, mask, row_base):
+    """An ascending (key, row) run with distinct rows, as carriers on the host."""
+    keys = to_carrier(_keys(seed, n, w, mask), "cpu")
+    rows = row_base + torch.randperm(n, generator=torch.Generator().manual_seed(seed))
+    keys, rows = sort_words_keyed(keys, rows)
+    return keys, rows
+
+
+@pytest.mark.parametrize("n_q,n_s,w,mask", [
+    (1000, 4097, 3, 0x0F0F),  # n_q not a multiple of 256, n_s = 2^k + 1
+    (300, 1, 2, 0xFF),  # n_s = 1
+    (257, 4095, 4, 0x3),  # duplicate keys: ties fall to the row word
+    (129, 300, 128, 0x1),  # 128-word keys
+])
+def test_merge_rank_kernel_matches_plain(dev, n_q, n_s, w, mask):
+    ks, rs = _sorted_run(n_s, n_s, w, mask, 0)
+    kq, rq = _sorted_run(n_q, n_q, w, mask, n_s)
+    ks, rs, kq, rq = (t.to(dev) for t in (ks, rs, kq, rq))
+    before = cudalib.LAUNCHES["merge_rank"]
+    assert torch.equal(merge_ranks(kq, rq, ks, rs), merge_ranks_plain(kq, rq, ks, rs))
+    assert cudalib.LAUNCHES["merge_rank"] == before + 1
+
+
+def test_merge_rank_kernel_on_pad_rows(dev):
+    """All-ones keys against pad rows from both reserved ranges, and empty
+    runs, which launch nothing."""
+    ones = torch.full((600, 2), 0xFFFFFFFF, dtype=torch.int64, device=dev)
+    ar = torch.arange(300, device=dev)
+    rs = torch.cat([ar, plancache.ROW_PAD_A + ar])
+    rq = torch.cat([ar[:100] + 300, plancache.ROW_PAD_B + ar[:200]])
+    assert torch.equal(merge_ranks(ones[:300], rq, ones, rs),
+                       merge_ranks_plain(ones[:300], rq, ones, rs))
+    before = cudalib.LAUNCHES["merge_rank"]
+    assert merge_ranks(ones[:0], rq[:0], ones, rs).shape == (0,)
+    assert torch.equal(merge_ranks(ones[:5], rq[:5], ones[:0], rs[:0]),
+                       torch.zeros(5, dtype=torch.int32, device=dev))
+    assert cudalib.LAUNCHES["merge_rank"] == before
+
+
+@pytest.mark.parametrize("n,w", [(5000, 3), (300, 128), (2, 1)])
+def test_dbit_kernel_matches_plain(dev, n, w):
+    keys = torch.sort(to_carrier(_keys(n, n, w, 0x0000FF0F), "cpu"), dim=0).values
+    keys[n // 2] = keys[n // 2 - 1]  # an equal pair
+    if n > 4:
+        keys[3] = keys[2]
+        keys[3, -1] ^= 1  # a difference only in the last bit of the last word
+    keys = keys.to(dev)
+    got = adjacent_dbits(keys)
+    assert torch.equal(got, adjacent_dbits_plain(keys))
+    if n > 4:
+        assert int(got[2]) == 32 * w - 1
+
+
+def test_chunked_run_on_the_card_equals_unchunked(dev):
+    buf = np.random.default_rng(5).integers(97, 123, size=(10000, 32), dtype=np.uint8)
+    ks = rows_to_keyset(buf)
+    cudalib.reset_launches()
+    chunked = ReconstructionPipeline(backend="cuda", device=dev, chunk_threshold=4096,
+                                     chunk_size=1024).run(ks)
+    assert cudalib.LAUNCHES["merge_rank"] == chunked.stats["cascade_merges"] == 9
+    assert cudalib.LAUNCHES["dbit"] == 1
+    mono = ReconstructionPipeline(backend="cuda", device=dev).run(ks)
+    for name in ("comp_sorted", "row_sorted", "rid_sorted"):
+        assert torch.equal(getattr(chunked, name), getattr(mono, name)), name
+    for key, val in mono.tree.leaf.items():
+        assert torch.equal(chunked.tree.leaf[key], val), key
+    np.testing.assert_array_equal(chunked.meta.dbitmap, mono.meta.dbitmap)

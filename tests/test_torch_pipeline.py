@@ -272,26 +272,76 @@ def test_registry_lists_both_backends():
         get_backend("no-such-backend", device="cpu")
 
 
-def test_run_above_chunk_threshold_raises():
-    _, tks = _keysets(_words("dup_300_3"))
-    pipe = ReconstructionPipeline(backend="cuda", device="cpu", chunk_threshold=256)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipe.run(tks)
+def test_run_above_chunk_threshold_takes_chunked_path():
+    rks, tks = _keysets(_words("dup_300_3"))
+    ref = RPipeline(backend="jnp", chunk_threshold=256, chunk_size=128).run(rks)
+    res = ReconstructionPipeline(backend="cuda", device="cpu", chunk_threshold=256,
+                                 chunk_size=128).run(tks)
+    _assert_results_equal(res, ref)
+    assert res.stats["chunked"] == ref.stats["chunked"] == 3
+    assert res.stats["cascade_merges"] == ref.stats["cascade_merges"] == 2
 
 
-@pytest.mark.parametrize("op", ["merge_sorted", "fused_extract_sort",
-                                "batched_extract_sort", "lookup_many"])
+@pytest.mark.parametrize("backend", PORT_BACKENDS)
+def test_merge_sorted_backend_op_matches_reference(backend):
+    """Two sorted halves of a sorted run with disjoint rows merge back into
+    the reference backend's merge, byte for byte."""
+    ref = _reference("dup_255_3")
+    keys, rows = np.asarray(ref.comp_sorted), np.asarray(ref.row_sorted)
+    odd = rows % 2 == 1
+    runs = [(keys[odd], rows[odd]), (keys[~odd], rows[~odd])]
+    wk, wr = r_get_backend("jnp").merge_sorted(*(jnp.asarray(a) for run in runs for a in run))
+    gk, gr = get_backend(backend, device="cpu").merge_sorted(
+        *(to_carrier(a, "cpu") for run in runs for a in run))
+    np.testing.assert_array_equal(to_u32(gk), np.asarray(wk))
+    np.testing.assert_array_equal(to_u32(gr), np.asarray(wr))
+    np.testing.assert_array_equal(to_u32(gk), keys)
+
+
+@pytest.mark.parametrize("op", ["fused_extract_sort", "batched_extract_sort", "lookup_many"])
 @pytest.mark.parametrize("backend", PORT_BACKENDS)
 def test_later_slice_backend_ops_raise(op, backend):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         getattr(get_backend(backend, device="cpu"), op)()
 
 
-@pytest.mark.parametrize("method", ["run_incremental", "run_many"])
+def test_run_incremental_runs_and_matches_reference():
+    """Deletes and a delta folded into a previous run equal the
+    reference's ``run_incremental``, which equals its full run."""
+    from repro.core.metadata import meta_from_keys as r_meta_from_keys
+
+    words = _words("dup_300_3")
+    rks, tks = _keysets(words[:255], seed=6)
+    drks, dtks = _keysets(words[255:], seed=7)
+    rmeta = r_meta_from_keys(words)
+    meta = meta_from_numpy(rmeta.dbitmap, rmeta.varbitmap, rmeta.refkey, rmeta.n_words)
+    keep = np.random.default_rng(1).random(255) < 0.8
+    rpipe = RPipeline(backend="jnp")
+    ref, _ = rpipe.run_incremental(rpipe.run(rks, meta=rmeta), rks, drks,
+                                   keep_rows=keep, meta=rmeta)
+    pipe = ReconstructionPipeline(backend="torch", device="cpu")
+    res, _ = pipe.run_incremental(pipe.run(tks, meta=meta), tks, dtks, keep_rows=keep,
+                                  meta=meta)
+    assert res.stats["incremental"] is True
+    _assert_results_equal(res, ref)
+
+
+@pytest.mark.parametrize("method", ["run_many"])
 def test_later_slice_pipeline_methods_raise(method):
     pipe = ReconstructionPipeline(backend="torch", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         getattr(pipe, method)()
+
+
+@pytest.mark.parametrize("method", ["run", "run_incremental"])
+def test_publish_to_raises(method):
+    """Snapshot publication belongs to a later slice: ``publish_to=``
+    raises before any work, naming its ROADMAP item."""
+    _, tks = _keysets(_words("dup_255_3"))
+    pipe = ReconstructionPipeline(backend="torch", device="cpu")
+    args = (tks,) if method == "run" else (pipe.run(tks), tks)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        getattr(pipe, method)(*args, publish_to=object())
 
 
 def test_fold_keyset_matches_reference():
