@@ -37,10 +37,25 @@ device or any phase fails:
    (``run_incremental``), equal to a full run over the folded set and to
    the ``"torch"`` backend; then a change set with a changed D-bitmap
    (falls back to the full run) and an empty one (no-op);
-7. kernel report: each kernel's launches on the main paths (phases 3, 5
-   and 6, each counted from 0), its time at the main path's shapes, its
-   plain version's time and the least time the card could take for the
-   same bytes and operations.
+7. multitenant: six tenants of exactly 1,000,000 Zipf(1.5, 64, 0) keys
+   each (a tenth of ``--n-keys``, at least 2^19 + 1; seeds ``seed+1`` .. ``seed+6``, cut after the dedupe), each
+   rebuilt by ``run(publish_to=cell)`` at the pipeline's defaults and
+   published into a ``TenantRegistry`` (one arena of capacity 8, two pad
+   slots); one fused ``lookup_many`` of 2^15 queries per tenant, half hits
+   and half misses, one tenant ragged (``n_valid`` = 2^15 - 1000), equal
+   per tenant (dead lanes included) to the single-tree ``"cuda"`` lookup
+   and to the ``"torch"`` backend's ``lookup_many``; then one explicit
+   ``flush`` of a ``MultiTenantEngine`` answers all six tenants in one
+   dispatch; the fused wall against the six per-tenant walls;
+8. mt_load: ``serve.loadgen.run_multitenant_load`` on ``"cuda"`` (8
+   tenants of 2^17 four-word keys, 8 readers, batches of 1024, mutation
+   batches of 1024, 5 s), then again at the reference bench's SLO point
+   (``target_p99_us`` = 4 x the unloaded p50): no torn read, no stale
+   epoch, no error, every tenant served;
+9. kernel report: each kernel's launches on the main paths (phases 3, 5,
+   6, 7 and 8, each counted from 0), its time at the main path's shapes,
+   its plain version's time and the least time the card could take for
+   the same bytes and operations.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -52,6 +67,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import threading
 import time
 from contextlib import contextmanager
 from pathlib import Path
@@ -66,23 +82,26 @@ import torch  # noqa: E402
 from repro_torch.backends import get_backend  # noqa: E402
 from repro_torch.configs.paper_index import ZipfConfig  # noqa: E402
 from repro_torch.core import plancache  # noqa: E402
-from repro_torch.core.btree import NOT_FOUND_RID, _descend  # noqa: E402
+from repro_torch.core.btree import NOT_FOUND_RID, _descend, _descend_many  # noqa: E402
 from repro_torch.core.compress import make_plan  # noqa: E402
 from repro_torch.core.dbits import (  # noqa: E402
     NO_DBIT, compute_dbitmap, lex_less, sort_words, sort_words_keyed)
 from repro_torch.core.keyformat import KeySet  # noqa: E402
 from repro_torch.core.metadata import meta_from_keys  # noqa: E402
 from repro_torch.core.pipeline import ReconstructionPipeline, fold_keyset  # noqa: E402
+from repro_torch.core.snapshot import SnapshotCell  # noqa: E402
 from repro_torch.core.u32 import to_carrier, to_u32  # noqa: E402
 from repro_torch.data.synthetic import zipf_keys  # noqa: E402
 from repro_torch.kernels import cudalib  # noqa: E402
 from repro_torch.kernels.bitonic import DEFAULT_BLOCK, block_sort, block_sort_plain  # noqa: E402
 from repro_torch.kernels.build import pk_windows, pk_windows_plain  # noqa: E402
 from repro_torch.kernels.dbit import adjacent_dbits, adjacent_dbits_plain  # noqa: E402
-from repro_torch.kernels.lookup import probe, probe_plain  # noqa: E402
+from repro_torch.kernels.lookup import probe, probe_many, probe_many_plain, probe_plain  # noqa: E402
 from repro_torch.kernels.merge import merge_ranks, merge_ranks_plain  # noqa: E402
 from repro_torch.kernels.merge import ops as merge_ops  # noqa: E402
 from repro_torch.kernels.pext import pext, pext_plain  # noqa: E402
+from repro_torch.serve import MultiTenantEngine, TenantRegistry  # noqa: E402
+from repro_torch.serve.loadgen import run_multitenant_load  # noqa: E402
 
 #: H100 SXM HBM3 rate (NVIDIA data sheet), for the bytes bound
 PEAK_BYTES_PER_S = 3.35e12
@@ -91,6 +110,9 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 BATCH = 1 << 18
 N_BATCHES = 4
+N_TENANTS = 6
+TENANT_QUERIES = 1 << 15
+RAGGED_TENANT = 2
 
 #: kernel -> (CUDA source, the TPU kernel it replaces)
 KERNELS = {
@@ -103,12 +125,18 @@ KERNELS = {
     "merge_rank": ("src/repro_torch/csrc/merge_rank.cu",
                    "src/repro/kernels/merge/kernel.py:45"),
     "dbit": ("src/repro_torch/csrc/dbit.cu", "src/repro/kernels/dbit/kernel.py:27"),
+    "probe_many": ("src/repro_torch/csrc/probe_many.cu",
+                   "src/repro/kernels/lookup/kernel.py:91"),
 }
 #: kernels each main path must launch
 PATH_KERNELS = {
     "slice": ("pext", "bitonic_block_sort", "pk_window", "probe", "dbit"),
     "chunked": ("pext", "bitonic_block_sort", "merge_rank", "pk_window", "dbit"),
     "incremental": ("pext", "bitonic_block_sort", "merge_rank", "pk_window", "dbit"),
+    "multitenant": ("pext", "bitonic_block_sort", "merge_rank", "pk_window", "dbit",
+                    "probe_many"),
+    "mt_load": ("pext", "bitonic_block_sort", "merge_rank", "pk_window", "dbit",
+                "probe_many"),
 }
 
 
@@ -217,6 +245,37 @@ def edge_checks(dev, rng) -> None:
             check(same(got, probe_plain(queries, node, leaf_dpos, leaf_pk, pk)),
                   f"probe kernel != plain at q={q} W={w} pk={pk}")
             check(bool(got.any()), "probe matched nothing")
+    # probe_many: T = 1 and a partial arena (3 tenants of capacity 4), q * lc
+    # off any multiple of 256, dpos + 1 on word boundaries and in the last
+    # word, pk 1, 16 and 32, all-ones queries (dead lanes) at each tail
+    for t, t_cap, q, w, n_leaves, lc in [(1, 1, 3001, 16, 500, 12), (3, 4, 77, 2, 7, 3),
+                                         (3, 4, 1000, 16, 400, 12)]:
+        top = w * 32
+        queries = to_carrier(rand_words(rng, t * q, w), dev).reshape(t, q, w)
+        queries[:, -5:] = 0xFFFFFFFF
+        size = t_cap * n_leaves * lc
+        dpos = np.concatenate([32 * rng.integers(0, w, size=size // 3) - 1,
+                               top - 2 - rng.integers(0, 32, size=size // 3)])
+        dpos = np.concatenate([dpos, rng.integers(0, top, size=size - dpos.size)])
+        leaf_dpos = torch.as_tensor(rng.permutation(dpos).reshape(t_cap, n_leaves, lc),
+                                    device=dev)
+        node = torch.as_tensor(rng.integers(0, n_leaves, size=(t, q)), device=dev)
+        for pk in (1, 16, 32):
+            leaf_pk = to_carrier(rand_words(rng, t_cap * n_leaves, lc, (1 << pk) - 1),
+                                 dev).reshape(t_cap, n_leaves, lc)
+            for ti in range(t):  # half the queries meet their leaf's windows
+                rows = node[ti, : q // 2]
+                leaf_pk[ti, rows] = pk_windows_plain(
+                    queries[ti, : q // 2].repeat_interleave(lc, 0),
+                    leaf_dpos[ti, rows].reshape(-1) + 1, pk).reshape(-1, lc)
+            got = probe_many(queries, node, leaf_dpos, leaf_pk, pk)
+            check(same(got, probe_many_plain(queries, node, leaf_dpos, leaf_pk, pk)),
+                  f"probe_many kernel != plain at T={t} of {t_cap} q={q} W={w} pk={pk}")
+            for ti in range(t):
+                check(same(got[ti], probe(queries[ti], node[ti], leaf_dpos[ti],
+                                          leaf_pk[ti], pk)),
+                      f"probe_many tenant {ti} != probe at q={q} W={w} pk={pk}")
+            check(bool(got.any()), "probe_many matched nothing")
     # merge-rank: n_q off any multiple of 256; searched runs of 1, 2^k - 1
     # and 2^k + 1 rows; duplicate keys whose ties fall to the row word;
     # 128-word keys
@@ -329,17 +388,19 @@ def rows_in(words: np.ndarray, table: np.ndarray) -> np.ndarray:
     return out
 
 
-def make_queries(words: np.ndarray, rng) -> tuple[np.ndarray, np.ndarray]:
-    """A batch of hits (rows sampled by seed; expected rid = row) and
-    misses (byte 63 set to 'A': the generator only emits 'a'..'z')."""
+def make_queries(words: np.ndarray, rng, size: int = BATCH,
+                 rids: np.ndarray | None = None) -> tuple[np.ndarray, np.ndarray]:
+    """A batch of hits (rows sampled by seed; expected rid = ``rids[row]``,
+    the row itself by default) and misses (byte 63 set to 'A': the
+    generator only emits 'a'..'z')."""
     n = words.shape[0]
-    hit_rows = rng.integers(0, n, size=BATCH // 2)
-    misses = words[rng.integers(0, n, size=BATCH - BATCH // 2)].copy()
+    hit_rows = rng.integers(0, n, size=size // 2)
+    misses = words[rng.integers(0, n, size=size - size // 2)].copy()
     misses[:, -1] = (misses[:, -1] & np.uint32(0xFFFFFF00)) | np.uint32(ord("A"))
     queries = np.concatenate([words[hit_rows], misses])
-    expect = np.concatenate([hit_rows.astype(np.uint32),
-                             np.full(misses.shape[0], NOT_FOUND_RID, np.uint32)])
-    order = rng.permutation(BATCH)
+    hit_rids = hit_rows.astype(np.uint32) if rids is None else rids[hit_rows]
+    expect = np.concatenate([hit_rids, np.full(misses.shape[0], NOT_FOUND_RID, np.uint32)])
+    order = rng.permutation(size)
     return queries[order], expect[order]
 
 
@@ -372,7 +433,179 @@ def profile_slice(pipe, keyset, tree, queries, log_dir) -> dict:
         "traced_wall_s": wall, "traced_stage_s": res.timings,
         "device_busy_s": busy_ms / 1e3, "idle_share": 1 - busy_ms / 1e3 / wall,
         "top_device_ms": [[name[:60], ms, count] for name, ms, count in device[:10]],
+        # the port's own kernels (csrc/*.cu, in anonymous namespaces)
+        "port_kernel_device_ms": {
+            name.split("::")[1].split("(")[0]: [ms, count]
+            for name, ms, count in device if name.startswith("(anonymous namespace)::")},
     }
+
+
+def median_wall(fn, reps: int = 5) -> float:
+    """Median host wall of ``fn`` in s, each run ended by a synchronize."""
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return float(np.median(walls))
+
+
+def tenant_key_count(n_keys: int) -> int:
+    """Keys per tenant of the multitenant phase: a tenth of ``--n-keys``
+    (1,000,000 at the default), and above 2^19 so that each tenant's
+    rebuild takes the merge ladder."""
+    return max((1 << 19) + 1, n_keys // 10)
+
+
+def tenant_keysets(args, rng) -> dict:
+    """Six tenants of exactly :func:`tenant_key_count` Zipf(1.5, 64, 0) keys:
+    seeds ``seed+1`` .. ``seed+6``, drawn 5 % over, deduplicated, cut to
+    the count by a seeded pick (equal counts give equal tree geometry);
+    tenant t's rids are ``t * 2^24 + row``."""
+    out = {}
+    n = tenant_key_count(args.n_keys)
+    for t in range(N_TENANTS):
+        zk = zipf_keys(ZipfConfig(1.5, 64, 0, n + n // 20), seed=args.seed + 1 + t)
+        check(zk.n >= n, f"tenant {t}: {zk.n} unique keys, fewer than {n}")
+        pick = rng.permutation(zk.n)[:n]
+        out[t] = KeySet(words=zk.words[pick], lengths=zk.lengths[pick],
+                        rids=(np.uint32(t << 24) + np.arange(n, dtype=np.uint32)))
+    return out
+
+
+def multitenant_phase(args, dev, rng, launches: dict) -> dict:
+    """Phase 7: six tenants rebuilt and published into one arena, one fused
+    ``lookup_many`` and one explicit engine flush (the path, counted from
+    0), then the checks against the single-tree lookups and the plain
+    backend, then the walls.  Returns what the kernel report needs."""
+    t0 = time.perf_counter()
+    keysets = tenant_keysets(args, rng)
+    data_s = time.perf_counter() - t0
+    n_q = TENANT_QUERIES
+    batches = [make_queries(keysets[t].words, rng, n_q, keysets[t].rids)
+               for t in range(N_TENANTS)]
+    q_np = np.stack([qb for qb, _ in batches])
+    n_valid = np.full(N_TENANTS, n_q, np.int64)
+    n_valid[RAGGED_TENANT] = n_q - 1000
+    cuda = get_backend("cuda", device=dev)
+
+    cudalib.reset_launches()
+    t0 = time.perf_counter()
+    pipe = ReconstructionPipeline(backend="cuda", device=dev)
+    registry, cells, trees, chunks = TenantRegistry(), {}, {}, []
+    for t, ks in keysets.items():
+        cells[t] = SnapshotCell()
+        res = pipe.run(ks, publish_to=cells[t])
+        trees[t] = res.tree
+        chunks.append(res.stats["chunked"])
+        registry.publish(t, cells[t])
+    del res
+    rebuild_s = time.perf_counter() - t0
+    arena = registry.arena_of(0)
+    queries = to_carrier(q_np, dev)
+    found, rid = cuda.lookup_many(arena.stacked, queries, n_valid)
+    engine = MultiTenantEngine(registry, cuda, auto_dispatch=False)
+    answers = {}
+
+    def submit(t):
+        answers[t] = engine.submit(t, q_np[t, : n_valid[t]])
+
+    threads = [threading.Thread(target=submit, args=(t,)) for t in range(N_TENANTS)]
+    for th in threads:
+        th.start()
+    deadline = time.perf_counter() + 30
+    while engine.stats()["pending"] < N_TENANTS:
+        check(time.perf_counter() < deadline and all(th.is_alive() for th in threads),
+              f"only {engine.stats()['pending']} of {N_TENANTS} engine requests queued")
+        time.sleep(0.001)
+    flushed = engine.flush()
+    for th in threads:
+        th.join(timeout=60)
+    check(not any(th.is_alive() for th in threads) and sorted(answers) == list(range(N_TENANTS)),
+          f"the engine answered tenants {sorted(answers)} of {N_TENANTS}")
+    torch.cuda.synchronize()
+    launches["multitenant"] = dict(cudalib.LAUNCHES)
+    check_launches("multitenant", launches["multitenant"])
+    eng = engine.stats()
+    engine.shutdown()
+
+    check(arena.capacity == 8 and arena.tenants == tuple(range(N_TENANTS))
+          and arena.slots == {t: t for t in range(N_TENANTS)}
+          and all(registry.arena_of(t) is arena for t in range(N_TENANTS)),
+          "the six tenants did not share one arena of capacity 8")
+    check(flushed == N_TENANTS and eng["n_dispatches"] == 1 and eng["n_batches"] == 1,
+          f"the engine's flush took {eng['n_dispatches']} dispatches, not 1")
+    torch_backend = get_backend("torch", device=dev)
+    f_ref, r_ref = torch_backend.lookup_many(arena.stacked, queries, n_valid)
+    check(same(found, f_ref) and same(rid, r_ref), "lookup_many: cuda != torch backend")
+    live = torch.arange(n_q, device=dev)[None, :] < torch.as_tensor(n_valid, device=dev)[:, None]
+    q_norm = torch.where(live[..., None], queries, torch.full_like(queries, 0xFFFFFFFF))
+    for t in range(N_TENANTS):
+        nv = int(n_valid[t])
+        f1, r1 = cuda.lookup(trees[t], q_norm[t])
+        check(same(found[t], f1) and same(rid[t], r1),
+              f"lookup_many tenant {t} != its single-tree lookup")
+        check(np.array_equal(to_u32(rid[t, :nv]), batches[t][1][:nv]),
+              f"tenant {t}: a lookup_many answer is wrong")
+        e_found, e_rid, e_epoch = answers[t]
+        check(e_epoch == 0 and np.array_equal(e_found, found[t, :nv].cpu().numpy())
+              and np.array_equal(e_rid, to_u32(rid[t, :nv])),
+              f"tenant {t}: the engine's answer differs from lookup_many")
+    check(not bool(found[RAGGED_TENANT, n_valid[RAGGED_TENANT]:].any()),
+          "a dead lane of the ragged tenant found a key")
+
+    fused_s = median_wall(lambda: cuda.lookup_many(arena.stacked, queries, n_valid))
+    single_s = [median_wall(lambda t=t: cuda.lookup(trees[t], q_norm[t]))
+                for t in range(N_TENANTS)]
+    line = {
+        "tenants": N_TENANTS, "keys_per_tenant": tenant_key_count(args.n_keys), "key_words": 16,
+        "capacity": arena.capacity, "queries_per_tenant": n_q,
+        "n_valid": n_valid.tolist(), "data_s": data_s,
+        "rebuild_and_publish_s": rebuild_s,
+        "chunks_per_rebuild": chunks,
+        "stacked_full_gib": arena.stacked.sorted_full.numel() * 8 / 2**30,
+        "fused_lookup_many_s": fused_s, "per_tenant_lookup_s": single_s,
+        "per_tenant_sum_s": sum(single_s), "engine": eng,
+        "probe_many_launches": launches["multitenant"]["probe_many"],
+        "launches": launches["multitenant"],
+    }
+    print(f"[multitenant] {json.dumps(line)}", flush=True)
+    print("[multitenant] fused lookup_many == each tenant's single-tree lookup (dead lanes "
+          "included) == torch backend; one engine flush, one dispatch", flush=True)
+    return {"stacked": arena.stacked, "queries": q_norm,
+            "node": _descend_many(arena.stacked, q_norm)}
+
+
+def check_load(rep: dict, what: str) -> None:
+    check(rep["torn_reads"] == 0, f"{what}: {rep['torn_reads']} torn reads")
+    check(rep["stale_epochs"] == 0, f"{what}: {rep['stale_epochs']} stale epochs")
+    check(rep["errors"] == [], f"{what}: errors {rep['errors']}")
+    served = rep["served_per_tenant"]
+    check(sorted(served) == list(range(rep["n_tenants"])) and min(served.values()) > 0,
+          f"{what}: a tenant was starved ({served})")
+    check(rep["epochs_published"] > 8, f"{what}: {rep['epochs_published']} epochs published")
+
+
+def mt_load_phase(args, dev, launches: dict) -> None:
+    """Phase 8: the closed-loop multi-tenant harness without the SLO, then
+    with it at 4x the first run's unloaded p50 (the path, counted from 0
+    over both)."""
+    opts = dict(backend="cuda", device=dev, n_tenants=8, n_keys=1 << 17, n_words=4,
+                batch=1024, n_readers=8, mutation_batch=1024, duration_s=5.0,
+                seed=args.seed)
+    cudalib.reset_launches()
+    plain = run_multitenant_load(**opts)
+    check_load(plain, "mt_load")
+    slo = run_multitenant_load(**opts, target_p99_us=4 * plain["unloaded_p50_us"])
+    check_load(slo, "mt_load with SLO")
+    launches["mt_load"] = dict(cudalib.LAUNCHES)
+    check_launches("mt_load", launches["mt_load"])
+    print(f"[mt_load] {json.dumps(plain)}", flush=True)
+    print(f"[mt_load] slo {json.dumps(slo)}", flush=True)
+    print(f"[mt_load] launches {json.dumps(launches['mt_load'])}; no torn read, no stale "
+          "epoch, no error, every tenant served, with and without the SLO", flush=True)
 
 
 def main(argv=None) -> int:
@@ -384,6 +617,7 @@ def main(argv=None) -> int:
     ap.add_argument("--log-dir", type=Path, default=None,
                     help="write the compiler output (and the profile) here")
     args = ap.parse_args(argv)
+    t_script = time.perf_counter()
 
     if not torch.cuda.is_available():
         print("no CUDA device: this smoke test runs only on a GPU", file=sys.stderr)
@@ -405,8 +639,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     edge_checks(dev, rng)
     torch.cuda.synchronize()
-    print(f"[kernels] pext, bitonic, pk-window, probe, merge-rank, dbit == plain at "
-          f"edge shapes ({time.perf_counter() - t0:.2f} s)", flush=True)
+    print(f"[kernels] pext, bitonic, pk-window, probe, merge-rank, dbit, probe_many == "
+          f"plain at edge shapes ({time.perf_counter() - t0:.2f} s)", flush=True)
 
     # -- 3. the slice --------------------------------------------------------
     t0 = time.perf_counter()
@@ -615,8 +849,15 @@ def main(argv=None) -> int:
     print(f"[incremental] {json.dumps(inc_line)}", flush=True)
     print("[incremental] == full run over the folded set, == torch backend; the changed "
           "D-bitmap falls back, the empty change set is a no-op", flush=True)
+    del pipe_c
 
-    # -- 7. kernel report at the main paths' shapes ------------------------------
+    # -- 7. multitenant: six 1M-key tenants in one arena ------------------------
+    mt = multitenant_phase(args, dev, rng, launches)
+
+    # -- 8. mt_load: the closed-loop harness, with and without the SLO ----------
+    mt_load_phase(args, dev, launches)
+
+    # -- 9. kernel report at the main paths' shapes ------------------------------
     b = plancache.bucket(n)
     words_dev = plancache.pad_tail(to_carrier(keyset.words, dev), b, plancache.SENTINEL)
     plan = make_plan(res.extract_bitmap, keyset.n_words)
@@ -662,6 +903,20 @@ def main(argv=None) -> int:
                   + slots * 2 * 4 + BATCH * lc,
                   BATCH * lc * 7),
     }
+    # probe_many at the multitenant lookup: six tenants x 2^15 queries x lc
+    # lanes; the same per-pair reads as probe, tenant by tenant
+    st_m, q_m, node_m = mt["stacked"], mt["queries"], mt["node"]
+    t_m, n_qm = node_m.shape
+    tenant_m = torch.arange(t_m, device=dev)[:, None]
+    pairs_m = t_m * n_qm * lc
+    starts_m = st_m.leaf["dpos"][tenant_m, node_m].reshape(-1) + 1
+    pair_rows_m = torch.arange(t_m * n_qm, device=dev).repeat_interleave(lc)
+    slots_m = int(torch.unique(tenant_m * st_m.leaf["dpos"].shape[1] + node_m).numel()) * lc
+    cases["probe_many"] = (
+        lambda: probe_many(q_m, node_m, st_m.leaf["dpos"], st_m.leaf["pk"], pk),
+        lambda: probe_many_plain(q_m, node_m, st_m.leaf["dpos"], st_m.leaf["pk"], pk),
+        touched_words(starts_m, pair_rows_m) * 4 + t_m * n_qm * 4 + slots_m * 2 * 4 + pairs_m,
+        pairs_m * 7)
 
     def rank_shape(rank_args) -> dict:
         return {"n_q": int(rank_args[0].shape[0]), "n_s": int(rank_args[2].shape[0]),
@@ -725,6 +980,7 @@ def main(argv=None) -> int:
         **measure(*rank_case(delta_rank["args"]), "merge_rank (incremental)")}
     del comp, comp_m, rows_m, words_dev
     print(json.dumps({"kernels": report}), flush=True)
+    print(f"[wall] the whole script took {time.perf_counter() - t_script:.1f} s", flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

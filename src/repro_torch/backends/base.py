@@ -19,7 +19,9 @@ literally the (compressed key, rid) pair).  Rows are the pipeline's row
 
 The build and lookup ops share the contract: trees and ``(found, rid)``
 answers (miss lanes set to ``repro_torch.core.btree.NOT_FOUND_RID``) must
-be bit-for-bit equal across backends.
+be bit-for-bit equal across backends.  ``lookup_many`` lifts it over the
+tenant axis of a stacked arena: each tenant's row equals ``lookup`` on
+that tenant's tree alone.
 
 Every backend runs on one ``device``: CUDA unless the caller passes
 another (``device="cpu"`` runs the plain versions on the host).  With no
@@ -29,9 +31,9 @@ GPU and no explicit device, construction raises.
 shares the contract: the merge of two ascending (key, row) runs is
 byte-identical to ``sort`` over their concatenation.
 
-Ops of later slices of the port — ``fused_extract_sort``,
-``batched_extract_sort`` (``run_many``) and ``lookup_many``
-(multi-tenant) — raise ``NotImplementedError`` naming their ROADMAP item.
+Ops of a later slice of the port — ``fused_extract_sort`` and
+``batched_extract_sort`` (``run_many``) — raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -164,6 +166,22 @@ class ExecutionBackend(abc.ABC):
 
         return lookup_batch_planned(tree, queries)
 
+    def lookup_many(self, stacked, queries: torch.Tensor, n_valid=None):
+        """Fused point lookup over T stacked same-geometry trees.
+
+        ``stacked`` is a ``repro_torch.core.btree.stack_trees`` arena;
+        ``queries`` is (T_q, q, W) with ``T_q`` at most the arena
+        capacity, tenant ``t``'s block answered against member tree
+        ``t``; ``n_valid`` (optional (T_q,) host counts) gives per-tenant
+        live lane counts, dead lanes answering as all-ones queries.
+        Returns ``((T_q, q) found, (T_q, q) rid)``, each tenant's row
+        byte-identical to :meth:`lookup` on that tenant's tree alone.  The
+        default compares full keys at the leaf (the oracle).
+        """
+        from repro_torch.core.btree import lookup_many_planned
+
+        return lookup_many_planned(stacked, queries, n_valid)
+
     # ------------------------------------------------------- refresh meta
     def refresh_meta(self, comp_sorted: torch.Tensor, meta, ref_key,
                      n_valid: int | None = None):
@@ -189,7 +207,3 @@ class ExecutionBackend(abc.ABC):
     def batched_extract_sort(self, *args, **kwargs):
         """Stacked extract+sort of run_many — not ported yet."""
         raise not_ported("batched_extract_sort", "Queue 1 item 9")
-
-    def lookup_many(self, *args, **kwargs):
-        """Multi-tenant fused lookup — not ported yet."""
-        raise not_ported("lookup_many", "Queue 1 item 8, Queue 2 item 7")

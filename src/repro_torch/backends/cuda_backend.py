@@ -17,6 +17,9 @@
   as its ``slice_fn``;
 * ``lookup`` — ``lookup_batch_planned`` with the probe kernel
   (``kernels/lookup``) screening the leaf entries;
+* ``lookup_many`` — ``lookup_many_planned`` with the tenant-major probe
+  kernel (``kernels/lookup``) screening every tenant's leaf entries in
+  one launch per call;
 * ``refresh_meta`` — the dbit kernel (``kernels/dbit``) computes the
   adjacent D-bit positions on the card; the base class's host scatter
   turns them into the bitmap.
@@ -34,7 +37,7 @@ from repro_torch.kernels import merge
 from repro_torch.kernels.bitonic import block_sort
 from repro_torch.kernels.build import pk_windows
 from repro_torch.kernels.dbit import adjacent_dbits
-from repro_torch.kernels.lookup import leaf_match_fn
+from repro_torch.kernels.lookup import leaf_match_fn, leaf_match_many_fn
 from repro_torch.kernels.pext import pext
 
 from .base import ExecutionBackend, register_backend
@@ -45,7 +48,7 @@ __all__ = ["CudaBackend"]
 @register_backend("cuda")
 class CudaBackend(ExecutionBackend):
     """pext extraction + bitonic block sort + merge-rank merge + pk-window
-    build + probe lookup + dbit refresh."""
+    build + probe lookup + tenant-major probe lookup_many + dbit refresh."""
 
     dbit_fn = staticmethod(adjacent_dbits)
 
@@ -76,3 +79,9 @@ class CudaBackend(ExecutionBackend):
         from repro_torch.core.btree import lookup_batch_planned
 
         return lookup_batch_planned(tree, queries, leaf_match_fn=leaf_match_fn)
+
+    def lookup_many(self, stacked, queries, n_valid=None):
+        from repro_torch.core.btree import lookup_many_planned
+
+        return lookup_many_planned(stacked, queries, n_valid,
+                                   leaf_match_many_fn=leaf_match_many_fn)

@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.btree import BTree, BTreeConfig
+from repro_torch.core.btree import BTree, BTreeConfig, stack_trees
 from repro_torch.core.keyformat import KeySet
 from repro_torch.core.metadata import DSMeta
 from repro_torch.core.u32 import resolve_device, to_carrier, to_u32
@@ -23,6 +23,8 @@ __all__ = [
     "meta_from_numpy",
     "tree_from_numpy",
     "tree_to_numpy",
+    "stacked_tree_from_numpy",
+    "stacked_tree_to_numpy",
     "result_to_numpy",
 ]
 
@@ -101,6 +103,34 @@ def tree_to_numpy(tree: BTree) -> dict:
         "sorted_rids": to_u32(tree.sorted_rids),
         "n_keys": tree.n_keys,
     }
+
+
+def stacked_tree_to_numpy(stacked: BTree) -> list[dict]:
+    """A ``stack_trees`` arena as one :func:`tree_to_numpy` dict per slot
+    (pad slots included), in the reference's dtypes."""
+    whole = tree_to_numpy(stacked)
+    return [
+        {
+            "levels": [{k: v[t] for k, v in level.items()} for level in whole["levels"]],
+            "leaf": {k: v[t] for k, v in whole["leaf"].items()},
+            "sorted_full": whole["sorted_full"][t],
+            "sorted_rids": whole["sorted_rids"][t],
+            "n_keys": whole["n_keys"],
+        }
+        for t in range(int(stacked.sorted_full.shape[0]))
+    ]
+
+
+def stacked_tree_from_numpy(members, config, device=None) -> BTree:
+    """A port arena on ``device`` from one numpy tree per slot (the
+    :func:`stacked_tree_to_numpy` layout; ``config`` as for
+    :func:`tree_from_numpy`).  Its capacity is ``len(members)``."""
+    trees = [
+        tree_from_numpy(m["levels"], m["leaf"], m["sorted_full"], m["sorted_rids"],
+                        m["n_keys"], config, device=device)
+        for m in members
+    ]
+    return stack_trees(trees, capacity=len(trees))
 
 
 def result_to_numpy(res) -> dict:

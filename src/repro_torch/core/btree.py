@@ -19,6 +19,12 @@ leaf screen as a ``leaf_match_fn`` hook, so the CUDA backend plugs in its
 pk-window and probe kernels.  Every array equals the reference tree's:
 u32 fields (``rid``, ``pk``) are int64 carriers, the others int64 holding
 the reference's int32 values.
+
+Multi-tenant serving stacks same-geometry trees (``tree_geometry``,
+``stack_trees``) on a leading tenant axis; ``lookup_many_planned``
+descends every tenant's queries through its own member tree in one
+batched pass, with explicit per-tenant offsets into the flattened
+stacked arrays where the reference ``vmap``s the single-tree descent.
 """
 
 from __future__ import annotations
@@ -38,6 +44,9 @@ __all__ = [
     "build_btree",
     "search_batch",
     "lookup_batch_planned",
+    "tree_geometry",
+    "stack_trees",
+    "lookup_many_planned",
     "NOT_FOUND_RID",
 ]
 
@@ -240,29 +249,30 @@ def _first_ge(entry_keys: torch.Tensor, valid: torch.Tensor, query: torch.Tensor
     return torch.where(ge.any(dim=1), first, last_valid)
 
 
-def _descend(tree: BTree, queries: torch.Tensor) -> torch.Tensor:
-    """Non-leaf descent shared by every search path: (q,) leaf node ids.
+def _as_stack(tree: BTree) -> BTree:
+    """``tree`` as a one-member arena: every tensor viewed with a leading
+    tenant axis of 1 (no copy), so the single-tree search is the T = 1
+    case of the stacked one and the descent is written once."""
+    return BTree(
+        levels=tuple({k: v[None] for k, v in level.items()} for level in tree.levels),
+        leaf={k: v[None] for k, v in tree.leaf.items()},
+        sorted_full=tree.sorted_full[None],
+        sorted_rids=tree.sorted_rids[None],
+        n_keys=tree.n_keys,
+        config=tree.config,
+    )
 
-    Each level compares the query against the entries' *highest index
-    keys* through the highest-key pointer, as the paper's search (§4.3)
-    does — vectorized over the node fanout and the query batch.
-    """
-    node = torch.zeros(queries.shape[0], dtype=torch.int64, device=queries.device)
-    for level in tree.levels:
-        hi = level["hi"][node]  # (q, c)
-        child = level["child"][node]
-        hi_keys = tree.sorted_full[hi.clamp(0, tree.n_keys - 1)]  # (q, c, W)
-        e = _first_ge(hi_keys, child >= 0, queries)
-        node = torch.gather(child, 1, e[:, None])[:, 0].clamp(min=0)
-    return node
+
+def _descend(tree: BTree, queries: torch.Tensor) -> torch.Tensor:
+    """Non-leaf descent shared by every search path: (q,) leaf node ids
+    (:func:`_descend_many` on a one-member arena)."""
+    return _descend_many(_as_stack(tree), queries[None])[0]
 
 
 def _leaf_keys(tree: BTree, node: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Full keys of each descended leaf's entry lanes: (pos0, (q, lc, W))."""
-    lc = tree.config.leaf_cap
-    pos0 = node * lc
-    lanes = pos0[:, None] + torch.arange(lc, device=node.device)[None, :]
-    return pos0, tree.sorted_full[lanes.clamp(0, tree.n_keys - 1)]
+    pos0 = node * tree.config.leaf_cap
+    return pos0, _leaf_keys_many(_as_stack(tree), node[None])[0]
 
 
 def search_batch(tree: BTree, queries: torch.Tensor):
@@ -276,12 +286,6 @@ def search_batch(tree: BTree, queries: torch.Tensor):
     return found, rid, pos0 + e
 
 
-def _leaf_match_full(tree, node, keys, queries):
-    """Default leaf probe: full-key equality over every entry lane."""
-    del tree, node
-    return (keys == queries[:, None, :]).all(dim=-1)
-
-
 def lookup_batch_planned(
     tree: BTree, queries: torch.Tensor, *, leaf_match_fn=None
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -289,20 +293,194 @@ def lookup_batch_planned(
     with miss lanes set to :data:`NOT_FOUND_RID` — the backend ``lookup``
     op's byte-identity contract.
 
-    The descent is ``search_batch``'s; the leaf stage runs the
-    substitutable ``leaf_match_fn(tree, node, keys, queries) -> (q, lc)
-    bool`` (full-key equality by default, the probe kernel's screen plus
-    the full compare on the CUDA backend), which must imply full-key
-    equality bit for bit.  The reference pads the batch to a compile
-    bucket and answers the pad lanes as garbage; eager PyTorch needs no
-    bucket, so only the real queries are descended.
+    It is :func:`lookup_many_planned` on a one-member arena.  The leaf
+    stage runs the substitutable ``leaf_match_fn(tree, node, keys,
+    queries) -> (q, lc) bool`` on the tree's own tensors (full-key
+    equality by default, the probe kernel's screen plus the full compare
+    on the CUDA backend), which must imply full-key equality bit for bit.
+    The reference pads the batch to a compile bucket and answers the pad
+    lanes as garbage; eager PyTorch needs no bucket, so only the real
+    queries are descended.
     """
-    if leaf_match_fn is None:
-        leaf_match_fn = _leaf_match_full
-    node = _descend(tree, queries)
-    _, keys = _leaf_keys(tree, node)
-    eq = leaf_match_fn(tree, node, keys, queries) & tree.leaf["valid"][node]
-    found = eq.any(dim=1)
-    e = torch.argmax(eq.to(torch.int8), dim=1)
-    rid = torch.gather(tree.leaf["rid"][node], 1, e[:, None])[:, 0]
+    many_fn = None
+    if leaf_match_fn is not None:
+        def many_fn(stacked, node, keys, q):
+            del stacked
+            return leaf_match_fn(tree, node[0], keys[0], q[0])[None]
+    found, rid = lookup_many_planned(_as_stack(tree), queries[None],
+                                     leaf_match_many_fn=many_fn)
+    return found[0], rid[0]
+
+
+# ---------------------------------------------------------------------------
+# multi-tenant lookup: T same-geometry trees stacked, one batched descent
+# ---------------------------------------------------------------------------
+
+
+def tree_geometry(tree: BTree) -> tuple:
+    """Static shape signature of a tree — the arena bucketing key.
+
+    Two trees with equal geometry can be stacked into one arena; a rebuild
+    that changes any array shape (or ``n_keys``, or the config) changes
+    the geometry and must migrate to a different arena bucket.  Hashable,
+    and equal to the reference's tuple for the same tree.
+    """
+    levels = tuple(
+        tuple(sorted((k, tuple(map(int, v.shape))) for k, v in level.items()))
+        for level in tree.levels
+    )
+    leaf = tuple(sorted((k, tuple(map(int, v.shape))) for k, v in tree.leaf.items()))
+    return (
+        levels,
+        leaf,
+        tuple(map(int, tree.sorted_full.shape)),
+        tuple(map(int, tree.sorted_rids.shape)),
+        int(tree.n_keys),
+        int(tree.config.pk_bits),
+        float(tree.config.fill_factor),
+    )
+
+
+def stack_trees(trees, capacity: int | None = None) -> BTree:
+    """Stack T same-geometry trees on a new leading tenant axis.
+
+    Returns a :class:`BTree` whose every tensor has shape ``(capacity,) +
+    member_shape`` (``n_keys`` and ``config`` are the members' own).
+    ``capacity`` defaults to the next power of two ``>= len(trees)``; pad
+    slots replicate the first member (their queries are masked out by
+    ``n_valid``, so the content is irrelevant but must be shape-correct).
+    ``torch.stack`` copies, so an arena never aliases a member's tensors.
+    """
+    trees = list(trees)
+    if not trees:
+        raise ValueError("stack_trees needs at least one tree")
+    geom = tree_geometry(trees[0])
+    for i, t in enumerate(trees[1:], 1):
+        if tree_geometry(t) != geom:
+            raise ValueError(
+                f"tree {i} geometry differs from tree 0; same-geometry "
+                "trees only — bucket by tree_geometry() first"
+            )
+    t_live = len(trees)
+    if capacity is None:
+        capacity = 1 << max(0, (t_live - 1).bit_length())
+    if capacity < t_live:
+        raise ValueError(f"capacity {capacity} < {t_live} trees")
+    padded = trees + [trees[0]] * (capacity - t_live)
+
+    def stack(get):
+        return torch.stack([get(t) for t in padded])
+
+    return BTree(
+        levels=tuple(
+            {k: stack(lambda t, i=i, k=k: t.levels[i][k]) for k in level}
+            for i, level in enumerate(trees[0].levels)
+        ),
+        leaf={k: stack(lambda t, k=k: t.leaf[k]) for k in trees[0].leaf},
+        sorted_full=stack(lambda t: t.sorted_full),
+        sorted_rids=stack(lambda t: t.sorted_rids),
+        n_keys=trees[0].n_keys,
+        config=trees[0].config,
+    )
+
+
+def _tenant_rows(x: torch.Tensor, t: int, node: torch.Tensor) -> torch.Tensor:
+    """Rows ``node[t', i]`` of member ``t'`` of a stacked (T_cap, L, ...)
+    tensor, for the first ``t`` members: (t, q, ...).  The member offset
+    ``t' * L`` is added to the (already valid) node ids."""
+    n_rows = int(x.shape[1])
+    flat = x[:t].reshape((t * n_rows,) + tuple(x.shape[2:]))
+    offset = torch.arange(t, device=node.device)[:, None] * n_rows
+    return flat[node + offset]
+
+
+def _descend_many(stacked: BTree, queries: torch.Tensor) -> torch.Tensor:
+    """Tenant-major descent: (T, q, W) queries -> (T, q) leaf node ids,
+    tenant ``t``'s row descending member tree ``t``.
+
+    Each level compares the query against the entries' *highest index
+    keys* through the highest-key pointer, as the paper's search (§4.3)
+    does — vectorized over the node fanout, the query batch and the
+    tenants.  The highest-key indices are clamped into ``[0, n_keys)``
+    first, then offset by ``t * n_keys`` into the flattened stacked keys;
+    node ids are offset by ``t * L`` into the flattened level arrays."""
+    t, q, w = queries.shape
+    n = stacked.n_keys
+    full = stacked.sorted_full[:t].reshape(t * n, w)
+    key_offset = torch.arange(t, device=queries.device)[:, None, None] * n
+    flat_q = queries.reshape(t * q, w)
+    node = torch.zeros((t, q), dtype=torch.int64, device=queries.device)
+    for level in stacked.levels:
+        c = int(level["child"].shape[-1])
+        hi = _tenant_rows(level["hi"], t, node)  # (t, q, c)
+        child = _tenant_rows(level["child"], t, node).reshape(t * q, c)
+        hi_keys = full[hi.clamp(0, n - 1) + key_offset].reshape(t * q, c, w)
+        e = _first_ge(hi_keys, child >= 0, flat_q)
+        node = torch.gather(child, 1, e[:, None])[:, 0].clamp(min=0).reshape(t, q)
+    return node
+
+
+def _leaf_keys_many(stacked: BTree, node: torch.Tensor) -> torch.Tensor:
+    """Full keys of each descended leaf's entry lanes: (T, q, lc, W)."""
+    t = int(node.shape[0])
+    n, lc = stacked.n_keys, stacked.config.leaf_cap
+    w = int(stacked.sorted_full.shape[-1])
+    lanes = (node * lc)[..., None] + torch.arange(lc, device=node.device)
+    offset = torch.arange(t, device=node.device)[:, None, None] * n
+    return stacked.sorted_full[:t].reshape(t * n, w)[lanes.clamp(0, n - 1) + offset]
+
+
+def _leaf_match_many_full(tree, node, keys, queries):
+    """Default leaf probe: full-key equality over every entry lane,
+    tenant-major — ``keys`` (T, q, lc, W) against ``queries`` (T, q, W)."""
+    del tree, node
+    return (keys == queries[:, :, None, :]).all(dim=-1)
+
+
+def lookup_many_planned(
+    stacked: BTree, queries: torch.Tensor, n_valid=None, *, leaf_match_many_fn=None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused multi-tenant point lookup over a :func:`stack_trees` arena.
+
+    ``queries`` is ``(T_q, q, W)`` (int64 carriers) with ``T_q`` at most
+    the arena capacity; tenant ``t``'s block is answered against member
+    tree ``t``.  ``n_valid`` (optional host sequence of ``T_q`` counts)
+    gives each tenant's live lane count; lanes at or past it are
+    normalized to all-ones queries before the descent, exactly as the
+    reference does, so a dead lane answers whatever the all-ones key
+    answers in that tenant's tree (``found`` where the tree holds it).
+    Returns ``(found (T_q, q) bool, rid (T_q, q))`` with misses at
+    :data:`NOT_FOUND_RID`, each tenant's row byte-identical to
+    :func:`lookup_batch_planned` on that tenant's tree alone.
+
+    The reference pads the query axis to a compile bucket and the tenant
+    axis to the capacity, then slices both off; here only the ``T_q``
+    given tenants and their ``q`` lanes are descended, which answers the
+    kept lanes identically.  ``leaf_match_many_fn(tree, node, keys,
+    queries) -> (T, q, lc) bool`` substitutes the leaf probe (the
+    tenant-major probe kernel on the CUDA backend) and must imply
+    full-key equality bit for bit.
+    """
+    if leaf_match_many_fn is None:
+        leaf_match_many_fn = _leaf_match_many_full
+    if queries.dim() != 3:
+        raise ValueError(f"queries must be (T, q, W), got {tuple(queries.shape)}")
+    t_q, q, _ = (int(s) for s in queries.shape)
+    t_cap = int(stacked.sorted_full.shape[0])
+    if t_q > t_cap:
+        raise ValueError(f"{t_q} tenant blocks > arena capacity {t_cap}")
+    if n_valid is not None:
+        nv = np.asarray(n_valid, np.int64).reshape(-1)
+        if nv.shape[0] != t_q:
+            raise ValueError(f"n_valid has {nv.shape[0]} rows, expected {t_q}")
+        nv = torch.as_tensor(np.minimum(nv, q), device=queries.device)
+        live = torch.arange(q, device=queries.device)[None, :] < nv[:, None]
+        queries = torch.where(live[..., None], queries, torch.full_like(queries, MASK32))
+    node = _descend_many(stacked, queries)
+    keys = _leaf_keys_many(stacked, node)
+    valid = _tenant_rows(stacked.leaf["valid"], t_q, node)
+    eq = leaf_match_many_fn(stacked, node, keys, queries) & valid
+    found = eq.any(dim=2)
+    e = torch.argmax(eq.to(torch.int8), dim=2)  # first maximum
+    rid = torch.gather(_tenant_rows(stacked.leaf["rid"], t_q, node), 2, e[..., None])[..., 0]
     return found, torch.where(found, rid, torch.full_like(rid, NOT_FOUND_RID))

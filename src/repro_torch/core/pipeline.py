@@ -23,8 +23,10 @@ work; ``async_dispatch`` syncs once at the end instead.
   runs, rebuild the tree.  The output is byte-identical to a full ``run``
   over the folded keyset with the same DS-metadata.
 
-``run_many`` and snapshot publication (``publish_to=``) raise
-``NotImplementedError`` naming their ROADMAP item.
+``publish_to=<repro_torch.core.snapshot.SnapshotCell>`` freezes the
+finished result into the cell as its next epoch, on every return path of
+``run`` and ``run_incremental``.  ``run_many`` raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -297,8 +299,9 @@ class ReconstructionPipeline:
         flow): identity metadata, extraction skipped, the sort sees the full
         key width.  DS-metadata is then left as-is (the baseline has none to
         refresh).  ``watermark`` stamps the result with the LSN it is
-        current through.  ``publish_to`` (snapshot publication) is not
-        ported and raises.  ``stage_timings`` overrides the pipeline's
+        current through.  ``publish_to`` (a
+        :class:`~repro_torch.core.snapshot.SnapshotCell`) receives the
+        result as its next epoch.  ``stage_timings`` overrides the pipeline's
         sync policy for this call: ``True`` restores the per-stage
         barriers even under ``async_dispatch``; ``False`` forces one
         end-of-run sync.  Either way ``timings["sync"]`` reports the final
@@ -306,8 +309,6 @@ class ReconstructionPipeline:
         """
         from . import plancache
 
-        if publish_to is not None:
-            raise not_ported("publish_to (snapshot publication)", "Queue 1 item 7")
         t_run0 = time.perf_counter()
         sync = stage_timings if stage_timings is not None else not self.async_dispatch
         n = keyset.n
@@ -387,7 +388,7 @@ class ReconstructionPipeline:
         stats["chunk_tuned"] = self.chunk_plan is not None
         if chunks:
             stats.update(self._last_cascade)
-        return ReconstructionResult(
+        res = ReconstructionResult(
             tree=tree,
             meta=new_meta,
             comp_sorted=comp_sorted,
@@ -398,6 +399,9 @@ class ReconstructionPipeline:
             extract_bitmap=np.array(meta.dbitmap, np.uint32, copy=True),
             watermark=watermark,
         )
+        if publish_to is not None:
+            publish_to.publish(res)
+        return res
 
     # -------------------------------------------------- incremental (delta)
     def run_incremental(
@@ -438,10 +442,9 @@ class ReconstructionPipeline:
         extraction (the compressed projection moved).  An *empty* change
         set under unchanged metadata returns ``prev`` re-stamped at
         ``watermark`` without touching the device (``stats["noop"]``).
-        ``publish_to`` is not ported and raises.
+        ``publish_to`` publishes the result — whichever path produced it,
+        fallback and no-op included.
         """
-        if publish_to is not None:
-            raise not_ported("publish_to (snapshot publication)", "Queue 1 item 7")
         if meta is None:
             meta = prev.meta
         folded = fold_keyset(base_keyset, keep_rows, delta_keyset)
@@ -459,6 +462,8 @@ class ReconstructionPipeline:
                            stage_timings=stage_timings)
             res.stats["incremental"] = False
             res.stats["incremental_fallback"] = fallback
+            if publish_to is not None:
+                publish_to.publish(res)
             return res, folded
 
         # -- empty change set: advance the watermark, skip the rebuild -----
@@ -475,8 +480,10 @@ class ReconstructionPipeline:
                 for k in ("meta", "filter", "extract", "sort", "merge",
                           "build", "refresh_meta", "sync", "total")
             }
-            return _dc_replace(prev, timings=timings, stats=stats,
-                               watermark=watermark), folded
+            res = _dc_replace(prev, timings=timings, stats=stats, watermark=watermark)
+            if publish_to is not None:
+                publish_to.publish(res)
+            return res, folded
 
         from . import plancache
 
@@ -557,6 +564,8 @@ class ReconstructionPipeline:
             extract_bitmap=np.array(meta.dbitmap, np.uint32, copy=True),
             watermark=watermark,
         )
+        if publish_to is not None:
+            publish_to.publish(res)
         return res, folded
 
     def run_many(self, *args, **kwargs):

@@ -10,6 +10,10 @@ root, and loaded with ``ctypes``.  A library whose hash matches is reused.
 ``LAUNCHES`` counts the kernel launches of each wrapper: a wrapper adds
 one exactly where it launches its kernel (never on its plain-PyTorch CPU
 path), so a run can show which kernels its path went through.
+
+Kernels launch from more than one thread (the multi-tenant engine's
+dispatcher beside a writer's rebuild), so the first build and load of the
+library and every count increment each run under a lock.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -29,7 +34,7 @@ __all__ = ["LAUNCHES", "reset_launches", "build", "lib", "launch", "check_tensor
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("pext.cu", "bitonic.cu", "pk_window.cu", "probe.cu", "merge_rank.cu",
-           "dbit.cu")
+           "dbit.cu", "probe_many.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -44,21 +49,25 @@ _SIGNATURES = {
     "repro_probe": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _P),
     "repro_merge_rank": (_P, _P, _P, _P, _P, _L, _L, _I, _P),
     "repro_dbit": (_P, _P, _L, _I, _P),
+    "repro_probe_many": (_P, _P, _P, _P, _P, _I, _L, _I, _I, _L, _I, _P),
 }
 
 #: launches per kernel wrapper since the last :func:`reset_launches`
 LAUNCHES = {"pext": 0, "bitonic_block_sort": 0, "pk_window": 0, "probe": 0,
-            "merge_rank": 0, "dbit": 0}
+            "merge_rank": 0, "dbit": 0, "probe_many": 0}
 
 _lib: ctypes.CDLL | None = None
+_lib_lock = threading.Lock()
+_count_lock = threading.Lock()
 #: (seconds, compiler output) of the build this process did, if any
 last_build: tuple[float, str] | None = None
 
 
 def reset_launches() -> None:
     """Set every launch count to 0."""
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _count_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def _nvcc() -> str:
@@ -115,15 +124,17 @@ def build() -> Path:
 
 
 def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built at first use)."""
+    """The loaded kernel library (built at first use, by one thread)."""
     global _lib
     if _lib is None:
-        handle = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(handle, name)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
-        _lib = handle
+        with _lib_lock:
+            if _lib is None:
+                handle = ctypes.CDLL(str(build()))
+                for name, argtypes in _SIGNATURES.items():
+                    fn = getattr(handle, name)
+                    fn.argtypes = list(argtypes)
+                    fn.restype = ctypes.c_int
+                _lib = handle
     return _lib
 
 
@@ -151,4 +162,5 @@ def launch(kernel: str, entry: str, device: torch.device, *args) -> None:
         err = getattr(lib(), entry)(*c_args, stream)
     if err:
         raise RuntimeError(f"{kernel} kernel launch failed with CUDA error {err}")
-    LAUNCHES[kernel] += 1
+    with _count_lock:
+        LAUNCHES[kernel] += 1

@@ -8,6 +8,8 @@ kernel wrapper takes.
   with no GPU they raise instead of running on the host;
 * a CUDA kernel wrapper given a CPU tensor runs its plain version and
   launches nothing;
+* the kernel library is built and loaded once, however many threads ask
+  for it first;
 * ``chip_smoke.py`` exits non-zero and prints no result without a GPU, and
   when it stands alone, away from the package.
 """
@@ -18,6 +20,8 @@ import os
 import re
 import subprocess
 import sys
+import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -27,7 +31,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.backends import get_backend  # noqa: E402
 from repro_torch.convert import tree_from_numpy  # noqa: E402
-from repro_torch.core.btree import BTreeConfig  # noqa: E402
+from repro_torch.core.btree import BTreeConfig, stack_trees  # noqa: E402
 from repro_torch.core.compress import make_plan  # noqa: E402
 from repro_torch.core.dbits import compute_dbitmap  # noqa: E402
 from repro_torch.core.keyformat import KeySet  # noqa: E402
@@ -39,9 +43,11 @@ from repro_torch.kernels import cudalib  # noqa: E402
 from repro_torch.kernels.bitonic import block_sort, block_sort_plain  # noqa: E402
 from repro_torch.kernels.build import pk_windows, pk_windows_plain  # noqa: E402
 from repro_torch.kernels.dbit import adjacent_dbits, adjacent_dbits_plain  # noqa: E402
-from repro_torch.kernels.lookup import probe, probe_plain  # noqa: E402
+from repro_torch.kernels.lookup import probe, probe_many, probe_many_plain, probe_plain  # noqa: E402
 from repro_torch.kernels.merge import merge_ranks, merge_ranks_plain, merge_sorted  # noqa: E402
 from repro_torch.kernels.pext import pext, pext_plain  # noqa: E402
+from repro_torch.serve import MultiTenantEngine, TenantRegistry  # noqa: E402
+from repro_torch.serve.loadgen import run_multitenant_load  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "src" / "repro_torch"
@@ -83,7 +89,9 @@ print(json.dumps([names, bad]))
     names, bad = json.loads(out.stdout.splitlines()[-1])
     assert len(names) >= 20
     for name in ("repro_torch.kernels.merge.ops", "repro_torch.kernels.merge.ref",
-                 "repro_torch.kernels.dbit.ops", "repro_torch.kernels.dbit.ref"):
+                 "repro_torch.kernels.dbit.ops", "repro_torch.kernels.dbit.ref",
+                 "repro_torch.core.snapshot", "repro_torch.serve",
+                 "repro_torch.serve.tenants", "repro_torch.serve.loadgen"):
         assert name in names
     assert bad == []
 
@@ -119,6 +127,7 @@ def no_gpu(monkeypatch):
 @pytest.mark.parametrize("entry", [
     "pipeline_cuda", "pipeline_torch", "backend_cuda", "backend_torch",
     "reconstruct_index", "full_key_reconstruct", "meta_from_keys", "tree_from_numpy",
+    "run_multitenant_load", "multitenant_engine",
 ])
 def test_default_device_entry_points_raise_without_gpu(no_gpu, entry):
     ks = _keyset()
@@ -133,6 +142,10 @@ def test_default_device_entry_points_raise_without_gpu(no_gpu, entry):
         "tree_from_numpy": lambda: tree_from_numpy(
             [], {"rid": np.zeros((1, 12), np.uint32)}, ks.words[:1], ks.rids[:1], 1,
             BTreeConfig()),
+        "run_multitenant_load": lambda: run_multitenant_load(n_tenants=1, n_keys=64,
+                                                             duration_s=0.0),
+        "multitenant_engine": lambda: MultiTenantEngine(TenantRegistry(), get_backend("cuda"),
+                                                        auto_dispatch=False),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
@@ -206,6 +219,17 @@ def test_pk_window_and_probe_wrappers_on_cpu_take_plain_versions(no_kernel_libra
                        probe_plain(words[:8], node, dpos, leaf_pk, 16))
 
 
+def test_probe_many_wrapper_on_cpu_takes_plain_version(no_kernel_library):
+    words = to_carrier(_keyset(n=96, w=3).words, "cpu")
+    starts = (torch.arange(96) - 1).reshape(2, 4, 12)  # clipped, boundaries, last word
+    leaf_pk = pk_windows_plain(words[:48].repeat(2, 1), starts.reshape(-1) + 1, 16)
+    queries = words[:16].reshape(2, 8, 3)
+    node = (torch.arange(16) % 4).reshape(2, 8)
+    got = probe_many(queries, node, starts, leaf_pk.reshape(2, 4, 12), 16)
+    assert torch.equal(got, probe_many_plain(queries, node, starts,
+                                             leaf_pk.reshape(2, 4, 12), 16))
+
+
 def test_merge_rank_and_dbit_wrappers_on_cpu_take_plain_versions(no_kernel_library):
     words = torch.sort(to_carrier(_keyset(n=200, w=1).words, "cpu"), dim=0).values
     rows = torch.arange(200)
@@ -229,3 +253,50 @@ def test_cuda_backend_on_cpu_launches_nothing(no_kernel_library):
         res.tree, to_carrier(folded.words[:64], "cpu"))
     assert bool(found.all())
     np.testing.assert_array_equal(to_u32(rid), folded.rids[:64])
+    found, rid = get_backend("cuda", device="cpu").lookup_many(
+        stack_trees([res.tree, res.tree]), to_carrier(folded.words[:64], "cpu")[None], [60])
+    assert bool(found[0, :60].all())
+    np.testing.assert_array_equal(to_u32(rid)[0, :60], folded.rids[:60])
+
+
+# ---------------------------------------------------------------------------
+# the kernel library under threads
+# ---------------------------------------------------------------------------
+
+
+def test_kernel_library_builds_and_loads_once_across_threads(monkeypatch):
+    """Eight threads ask for the library at once: one build, one load, and
+    every thread gets the same handle."""
+    builds, loads = [], []
+
+    def slow_build():
+        builds.append(threading.get_ident())
+        time.sleep(0.05)  # a window for the other threads to race into
+        return Path("librepro_kernels_stub.so")
+
+    class FakeLibrary:
+        def __init__(self, path):
+            loads.append(path)
+
+        def __getattr__(self, name):
+            fn = lambda *args: 0  # noqa: E731
+            self.__dict__[name] = fn
+            return fn
+
+    monkeypatch.setattr(cudalib, "_lib", None)
+    monkeypatch.setattr(cudalib, "build", slow_build)
+    monkeypatch.setattr(cudalib.ctypes, "CDLL", FakeLibrary)
+    barrier = threading.Barrier(8)
+    got = []
+
+    def ask():
+        barrier.wait()
+        got.append(cudalib.lib())
+
+    threads = [threading.Thread(target=ask) for _ in range(8)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=30)
+    assert len(builds) == 1 and len(loads) == 1 and len(got) == 8
+    assert all(handle is got[0] for handle in got)

@@ -8,6 +8,9 @@ the CUDA toolkit:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 
+import threading
+import time
+
 import numpy as np
 import pytest
 
@@ -18,15 +21,17 @@ from repro_torch.core import plancache  # noqa: E402
 from repro_torch.core.compress import make_plan  # noqa: E402
 from repro_torch.core.dbits import compute_dbitmap, sort_words_keyed  # noqa: E402
 from repro_torch.core.pipeline import ReconstructionPipeline  # noqa: E402
+from repro_torch.core.snapshot import SnapshotCell  # noqa: E402
 from repro_torch.core.u32 import to_carrier, to_u32  # noqa: E402
 from repro_torch.data.synthetic import rows_to_keyset  # noqa: E402
 from repro_torch.kernels import cudalib  # noqa: E402
 from repro_torch.kernels.bitonic import block_sort, block_sort_plain  # noqa: E402
 from repro_torch.kernels.build import pk_windows, pk_windows_plain  # noqa: E402
 from repro_torch.kernels.dbit import adjacent_dbits, adjacent_dbits_plain  # noqa: E402
-from repro_torch.kernels.lookup import probe, probe_plain  # noqa: E402
+from repro_torch.kernels.lookup import probe, probe_many, probe_many_plain, probe_plain  # noqa: E402
 from repro_torch.kernels.merge import merge_ranks, merge_ranks_plain  # noqa: E402
 from repro_torch.kernels.pext import pext, pext_plain  # noqa: E402
+from repro_torch.serve import MultiTenantEngine, TenantRegistry  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -196,3 +201,105 @@ def test_chunked_run_on_the_card_equals_unchunked(dev):
     for key, val in mono.tree.leaf.items():
         assert torch.equal(chunked.tree.leaf[key], val), key
     np.testing.assert_array_equal(chunked.meta.dbitmap, mono.meta.dbitmap)
+
+
+@pytest.mark.parametrize("pk", [1, 16, 32])
+@pytest.mark.parametrize("t,t_cap", [(1, 1), (3, 4)])
+def test_probe_many_kernel_matches_plain(dev, pk, t, t_cap):
+    """T = 1 and a partial arena; q * lc = 1212, not a multiple of 256;
+    windows starting on word boundaries and in the last word; all-ones
+    (dead-lane) queries.  Each tenant's row equals the single-tree probe."""
+    rng = np.random.default_rng(pk + t)
+    q, w, n_leaves, lc = 101, 16, 300, 12
+    queries = to_carrier(_keys(pk, t * q, w), dev).reshape(t, q, w)
+    queries[:, -7:] = 0xFFFFFFFF
+    dpos = np.concatenate([
+        32 * rng.integers(0, w, size=t_cap * n_leaves * lc // 3) - 1,
+        w * 32 - 2 - rng.integers(0, 32, size=t_cap * n_leaves * lc // 3),
+    ])
+    dpos = np.concatenate([dpos, rng.integers(0, w * 32, size=t_cap * n_leaves * lc - dpos.size)])
+    leaf_dpos = torch.as_tensor(rng.permutation(dpos).reshape(t_cap, n_leaves, lc), device=dev)
+    node = torch.as_tensor(rng.integers(0, n_leaves, size=(t, q)), device=dev)
+    leaf_pk = to_carrier(_keys(pk + 1, t_cap * n_leaves, lc, (1 << pk) - 1), dev)
+    leaf_pk = leaf_pk.reshape(t_cap, n_leaves, lc)
+    for ti in range(t):  # about half the queries meet their leaf's stored windows
+        rows = node[ti, : q // 2]
+        leaf_pk[ti, rows] = pk_windows_plain(queries[ti, : q // 2].repeat_interleave(lc, 0),
+                                             leaf_dpos[ti, rows].reshape(-1) + 1,
+                                             pk).reshape(-1, lc)
+    before = cudalib.LAUNCHES["probe_many"]
+    got = probe_many(queries, node, leaf_dpos, leaf_pk, pk)
+    assert cudalib.LAUNCHES["probe_many"] == before + 1
+    assert torch.equal(got, probe_many_plain(queries, node, leaf_dpos, leaf_pk, pk))
+    for ti in range(t):
+        assert torch.equal(got[ti], probe(queries[ti], node[ti], leaf_dpos[ti], leaf_pk[ti], pk))
+    assert bool(got.any()) and not bool(got.all())
+
+
+def _arena(dev, n_tenants=3, n=3000):
+    """``n_tenants`` same-size 64-byte keysets built on the card, published
+    into a registry: (registry, {tenant: keyset}, {tenant: tree})."""
+    reg, kss, trees = TenantRegistry(), {}, {}
+    pipe = ReconstructionPipeline(backend="cuda", device=dev)
+    for t in range(n_tenants):
+        buf = np.random.default_rng(10 + t).integers(97, 123, size=(n, 64), dtype=np.uint8)
+        ks = rows_to_keyset(buf)
+        cell = SnapshotCell()
+        trees[t] = pipe.run(ks, publish_to=cell).tree
+        kss[t] = ks
+        reg.publish(t, cell)
+    return reg, kss, trees
+
+
+def test_cuda_lookup_many_matches_torch_on_the_card(dev):
+    """Three tenants in capacity 4, one ragged: one kernel launch, equal to
+    the plain backend's lookup_many and, per tenant, to the single-tree
+    ``"cuda"`` lookup of the same (dead-lane-normalized) queries."""
+    reg, kss, trees = _arena(dev)
+    arena = reg.arena_of(0)
+    assert arena.capacity == 4
+    q = np.stack([np.concatenate([kss[t].words[::30], kss[t].words[1::30] ^ np.uint32(1)])
+                  for t in range(3)])
+    n_valid = [q.shape[1], q.shape[1] - 17, 5]
+    queries = to_carrier(q, dev)
+    cuda = get_backend("cuda", device=dev)
+    before = cudalib.LAUNCHES["probe_many"]
+    found, rid = cuda.lookup_many(arena.stacked, queries, n_valid)
+    assert cudalib.LAUNCHES["probe_many"] == before + 1
+    f_ref, r_ref = get_backend("torch", device=dev).lookup_many(arena.stacked, queries, n_valid)
+    assert torch.equal(found, f_ref) and torch.equal(rid, r_ref)
+    for t in range(3):
+        qt = queries[t].clone()
+        qt[n_valid[t]:] = 0xFFFFFFFF
+        f1, r1 = cuda.lookup(trees[arena.slots[t]], qt)
+        assert torch.equal(found[t], f1) and torch.equal(rid[t], r1)
+    assert bool(found[0].any()) and not bool(found[0].all())
+
+
+def test_explicit_flush_engine_on_the_card(dev):
+    reg, kss, _ = _arena(dev)
+    eng = MultiTenantEngine(reg, get_backend("cuda", device=dev), auto_dispatch=False)
+    out = {}
+
+    def ask(t):
+        out[t] = eng.submit(t, kss[t].words[:50])
+
+    threads = [threading.Thread(target=ask, args=(t,)) for t in range(3)]
+    for th in threads:
+        th.start()
+    deadline = time.perf_counter() + 30
+    while eng.stats()["pending"] < 3:
+        assert time.perf_counter() < deadline and all(th.is_alive() for th in threads)
+        time.sleep(0.001)
+    before = cudalib.LAUNCHES["probe_many"]
+    assert eng.flush() == 3
+    for th in threads:
+        th.join(timeout=30)
+    assert not any(th.is_alive() for th in threads) and sorted(out) == [0, 1, 2]
+    assert eng.stats()["n_dispatches"] == 1
+    assert cudalib.LAUNCHES["probe_many"] == before + 1
+    for t in range(3):
+        found, rid, epoch = out[t]
+        assert found.all() and epoch == 0
+        np.testing.assert_array_equal(rid, kss[t].rids[:50])
+    eng.shutdown()

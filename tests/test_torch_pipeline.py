@@ -298,7 +298,7 @@ def test_merge_sorted_backend_op_matches_reference(backend):
     np.testing.assert_array_equal(to_u32(gk), keys)
 
 
-@pytest.mark.parametrize("op", ["fused_extract_sort", "batched_extract_sort", "lookup_many"])
+@pytest.mark.parametrize("op", ["fused_extract_sort", "batched_extract_sort"])
 @pytest.mark.parametrize("backend", PORT_BACKENDS)
 def test_later_slice_backend_ops_raise(op, backend):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -331,17 +331,6 @@ def test_later_slice_pipeline_methods_raise(method):
     pipe = ReconstructionPipeline(backend="torch", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         getattr(pipe, method)()
-
-
-@pytest.mark.parametrize("method", ["run", "run_incremental"])
-def test_publish_to_raises(method):
-    """Snapshot publication belongs to a later slice: ``publish_to=``
-    raises before any work, naming its ROADMAP item."""
-    _, tks = _keysets(_words("dup_255_3"))
-    pipe = ReconstructionPipeline(backend="torch", device="cpu")
-    args = (tks,) if method == "run" else (pipe.run(tks), tks)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        getattr(pipe, method)(*args, publish_to=object())
 
 
 def test_fold_keyset_matches_reference():
