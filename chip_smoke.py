@@ -11,8 +11,10 @@ device or any phase fails:
 1. build: compile the CUDA kernels from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, in parallel) and load them;
 2. kernels vs plain versions, byte for byte, at edge shapes: n not a tile
-   multiple, 128-word keys (pext, merge-rank, dbit), duplicate and
-   all-ones keys (bitonic, merge-rank), searched runs of 1 and 2^k±1 rows
+   multiple, 128-word keys (pext, bitonic, merge-rank, dbit), pext plans
+   of 1, 32 and 33 bits, straddling bytes and whole words, bitonic keys of
+   24, 110, 111 and 128 words in 512-row blocks, duplicate and all-ones
+   keys (bitonic, merge-rank), searched runs of 1 and 2^k±1 rows
    and pad rows of both reserved ranges (merge-rank), windows starting on
    a word boundary and in the last word (pk-window, probe), equal pairs
    and pairs that differ in the last bit only (dbit);
@@ -100,6 +102,7 @@ from repro_torch.kernels.lookup import probe, probe_many, probe_many_plain, prob
 from repro_torch.kernels.merge import merge_ranks, merge_ranks_plain  # noqa: E402
 from repro_torch.kernels.merge import ops as merge_ops  # noqa: E402
 from repro_torch.kernels.pext import pext, pext_plain  # noqa: E402
+from repro_torch.kernels.pext.ops import segment_plan  # noqa: E402
 from repro_torch.serve import MultiTenantEngine, TenantRegistry  # noqa: E402
 from repro_torch.serve.loadgen import run_multitenant_load  # noqa: E402
 
@@ -188,15 +191,38 @@ def edge_checks(dev, rng) -> None:
         plan = make_plan(to_u32(compute_dbitmap(words)), w)
         check(same(pext(words, plan), pext_plain(words, plan)),
               f"pext kernel != plain at n={n} W={w} ({plan.n_bits} bits)")
+    # pext plans at the segment compiler's edges: one kept bit, 32 and 33,
+    # a byte's bits straddling two output words, every bit of a word, and
+    # every bit of 128 words
+    for name, positions, w in [
+            ("one bit", [77], 4), ("32 bits", list(range(0, 64, 2)), 4),
+            ("33 bits", list(range(5, 38)), 3),
+            ("straddling bytes", list(range(3, 33)) + list(range(40, 46)), 2),
+            ("every bit of a word", [1, 2] + list(range(32, 64)), 3),
+            ("every bit of 128 words", list(range(128 * 32)), 128)]:
+        bm = np.zeros(w, np.uint32)
+        for pos in positions:
+            bm[pos // 32] |= np.uint32(1 << (31 - pos % 32))
+        plan = make_plan(bm, w)
+        words = to_carrier(rand_words(rng, 4099, w), dev)
+        check(same(pext(words, plan), pext_plain(words, plan)),
+              f"pext kernel != plain on the plan with {name}")
     # bitonic: duplicates, all-ones keys with a permuted payload, a ragged
-    # last block, the full-key width, and 128-word keys in a 64-row block
+    # last block, the full-key width, 128-word keys in a 64-row block, and
+    # 512-row blocks of the widths past the register path (24, 110, 111
+    # and 128 words: shared-memory words plus device-memory tie-breaks)
     for n, w, block, kind in [(4096 + 77, 4, 512, "dup"), (1000, 2, 512, "ones"),
                               (5000, 16, 512, "dup"), (777, 3, 128, "rand"),
-                              (300, 128, 64, "dup")]:
+                              (300, 128, 64, "dup"), (2049, 24, 512, "dup"),
+                              (1500, 110, 512, "rand"), (1025, 111, 512, "ones"),
+                              (1537, 128, 512, "dup"), (1537, 128, 512, "prefix")]:
         if kind == "dup":
             keys = np.repeat(rand_words(rng, -(-n // 4), w, 0x000000FF), 4, axis=0)[:n]
         elif kind == "ones":
             keys = np.full((n, w), 0xFFFFFFFF, np.uint32)
+        elif kind == "prefix":  # keys differ in the last word only
+            keys = np.zeros((n, w), np.uint32)
+            keys[:, -1] = rand_words(rng, n, 1, 0x000000FF)[:, 0]
         else:
             keys = rand_words(rng, n, w)
         words = to_carrier(keys, dev)
@@ -404,6 +430,23 @@ def make_queries(words: np.ndarray, rng, size: int = BATCH,
     return queries[order], expect[order]
 
 
+#: the kernel functions of csrc/*.cu
+PORT_KERNEL_FUNCTIONS = ("pext_kernel", "bitonic_regs_kernel", "bitonic_wide_kernel",
+                         "pk_window_kernel", "probe_kernel", "probe_many_kernel",
+                         "merge_rank_kernel", "dbit_kernel")
+
+
+def port_kernel(name: str) -> str | None:
+    """A traced kernel's name without namespace and arguments (template
+    arguments kept) if it is one of the port's, else None."""
+    for prefix in ("(anonymous namespace)::", "void (anonymous namespace)::"):
+        if name.startswith(prefix):
+            short = name[len(prefix):].split("(")[0]
+            if short.split("<")[0] in PORT_KERNEL_FUNCTIONS:
+                return short
+    return None
+
+
 def profile_slice(pipe, keyset, tree, queries, log_dir) -> dict:
     """One traced ``run`` of the slice plus one lookup batch under
     ``torch.profiler``: device time by kernel, and the share of the window
@@ -433,10 +476,11 @@ def profile_slice(pipe, keyset, tree, queries, log_dir) -> dict:
         "traced_wall_s": wall, "traced_stage_s": res.timings,
         "device_busy_s": busy_ms / 1e3, "idle_share": 1 - busy_ms / 1e3 / wall,
         "top_device_ms": [[name[:60], ms, count] for name, ms, count in device[:10]],
-        # the port's own kernels (csrc/*.cu, in anonymous namespaces)
+        # the port's own kernels (csrc/*.cu, in anonymous namespaces; a
+        # template's name starts with its return type)
         "port_kernel_device_ms": {
-            name.split("::")[1].split("(")[0]: [ms, count]
-            for name, ms, count in device if name.startswith("(anonymous namespace)::")},
+            port_kernel(name): [ms, count] for name, ms, count in device
+            if port_kernel(name) is not None},
     }
 
 
@@ -971,6 +1015,12 @@ def main(argv=None) -> int:
                  "launches": sum(path[name] for path in launches.values())}
         entry.update(measure(*case, name))
         report.append(entry)
+    # pext's plan at the bucket: kept bits, and the segments and tables
+    # the kernel walks per key
+    segments, tables = segment_plan(plan)
+    next(e for e in report if e["name"] == "pext")["plan"] = {
+        "bits": plan.n_bits, "words_in": w, "words_out": wc,
+        "segments": len(segments), "tables": len(tables)}
     # merge_rank at its two shapes: the rank pass of the largest cascade
     # merge (the entry's own numbers) and that of the incremental merge
     merge_entry = next(e for e in report if e["name"] == "merge_rank")

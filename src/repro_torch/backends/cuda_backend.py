@@ -6,9 +6,8 @@
   (key, row) order the unstable network does not guarantee (the
   reference merges the runs with one ``lax.sort`` outside any kernel; its
   counterpart here is the plain stable-sort series of
-  ``core.dbits.sort_words_keyed``); a block of keys wider than 23 words
-  does not fit the kernel's shared memory, so such a sort raises on the
-  card;
+  ``core.dbits.sort_words_keyed``); keys of any width, the reference's
+  128-word keys included;
 * ``merge_sorted`` — the bucketed merge with the merge-rank kernel
   (``kernels/merge``) as the one rank pass of the smaller run in the
   larger, then the plain complement scatter, as the reference's pallas

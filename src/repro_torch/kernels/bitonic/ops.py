@@ -8,9 +8,11 @@ by a bitonic network, lexicographically over the key words, with the row
 id as payload.  The network is not stable, so the result is defined by
 the network itself: the plain version below runs the reference's network
 lane for lane, and the kernel's pairwise compare-exchange makes the same
-choice at every lane, so all three agree byte for byte.  The kernel is
-bound by bytes (one read and one write of each row); a block lives in
-shared memory for all of its substages.
+choice at every lane, so all three agree byte for byte.  Its bound is
+the bytes (one read and one write of each row); keys of 1-8 and 16 words
+sort in registers, where integer issue limits the kernel.  Any other
+width, up to the reference's 128-word keys, sorts with the leading key
+words in shared memory and the rest read from device memory on a tie.
 """
 
 from __future__ import annotations
@@ -26,10 +28,6 @@ DEFAULT_BLOCK = 512
 #: pad rows past n read as all-ones in every plane (sort last, as in the
 #: reference's padding)
 _SENTINEL = 0xFFFFFFFF
-
-#: shared memory a block may use without opting in: (W+1) planes of a
-#: 512-row block fit for keys of up to 23 words
-_SMEM_LIMIT = 48 * 1024
 
 
 def block_sort_plain(
@@ -82,18 +80,12 @@ def block_sort(
     n, w = words.shape
     if rows.shape[0] != n:
         raise ValueError(f"{rows.shape[0]} rows for {n} keys")
-    smem = (w + 1) * block * 4
-    if smem > _SMEM_LIMIT:
-        raise ValueError(
-            f"a {block}-row block of {w}-word keys needs {smem} bytes of shared "
-            f"memory, more than the kernel's {_SMEM_LIMIT}"
-        )
     keys_out = torch.empty_like(words)
     rows_out = torch.empty_like(rows)
     if n == 0:
         return keys_out, rows_out
     cudalib.launch(
         "bitonic_block_sort", "repro_bitonic_block_sort", dev,
-        words, rows, keys_out, rows_out, n, w, w, block,
+        words, rows, keys_out, rows_out, n, w, block,
     )
     return keys_out, rows_out

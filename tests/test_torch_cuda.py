@@ -31,6 +31,7 @@ from repro_torch.kernels.dbit import adjacent_dbits, adjacent_dbits_plain  # noq
 from repro_torch.kernels.lookup import probe, probe_many, probe_many_plain, probe_plain  # noqa: E402
 from repro_torch.kernels.merge import merge_ranks, merge_ranks_plain  # noqa: E402
 from repro_torch.kernels.pext import pext, pext_plain  # noqa: E402
+from repro_torch.kernels.pext.ops import pext_segments  # noqa: E402
 from repro_torch.serve import MultiTenantEngine, TenantRegistry  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -58,18 +59,57 @@ def test_pext_kernel_matches_plain(dev, n, w):
     assert cudalib.LAUNCHES["pext"] == before + 1
 
 
-@pytest.mark.parametrize("kind,n,w", [("dup", 4173, 4), ("ones", 1000, 2), ("rand", 5000, 16)])
-def test_bitonic_kernel_matches_plain(dev, kind, n, w):
+#: plans at the segment compiler's edges: name -> (kept bit positions, W)
+_PLAN_EDGES = {
+    "one_bit": ([77], 4),
+    "32_bits": (list(range(0, 64, 2)), 4),
+    "33_bits": (list(range(5, 38)), 3),
+    "straddling_bytes": (list(range(3, 33)) + list(range(40, 46)), 2),
+    "every_bit_of_a_word": ([1, 2] + list(range(32, 64)), 3),
+    "every_bit_of_128_words": (list(range(128 * 32)), 128),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_PLAN_EDGES))
+def test_pext_kernel_on_plan_edges(dev, name):
+    positions, w = _PLAN_EDGES[name]
+    bm = np.zeros(w, np.uint32)
+    for p in positions:
+        bm[p // 32] |= np.uint32(1 << (31 - p % 32))
+    plan = make_plan(bm, w)
+    words = to_carrier(_keys(len(positions), 4099, w), dev)
+    got = pext(words, plan)
+    assert torch.equal(got, pext_plain(words, plan))
+    assert torch.equal(got, pext_segments(words, plan))
+
+
+def _bitonic_keys(kind, n, w, seed):
     if kind == "dup":
-        keys = np.repeat(_keys(n, -(-n // 4), w, 0xFF), 4, axis=0)[:n]
-    elif kind == "ones":
-        keys = np.full((n, w), 0xFFFFFFFF, np.uint32)
-    else:
-        keys = _keys(n, n, w)
-    words = to_carrier(keys, dev)
-    rows = torch.randperm(n, device=dev)
-    got, want = block_sort(words, rows), block_sort_plain(words, rows)
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        return np.repeat(_keys(seed, -(-n // 4), w, 0xFF), 4, axis=0)[:n]
+    if kind == "ones":  # every key ties with the pad sentinel
+        return np.full((n, w), 0xFFFFFFFF, np.uint32)
+    if kind == "prefix":  # keys differ in the last word only
+        keys = np.zeros((n, w), np.uint32)
+        keys[:, -1] = _keys(seed, n, 1, 0xFF)[:, 0]
+        return keys
+    return _keys(seed, n, w)
+
+
+@pytest.mark.parametrize("w", [1, 2, 4, 5, 8, 16, 23, 24, 64, 110, 111, 128])
+def test_bitonic_kernel_matches_plain(dev, w):
+    """Register widths (1-8, 16) and the shared-memory kernel (the rest, up
+    to 128 words, with tie-breaks from device memory past the words that
+    fit); blocks of 64, 512 and 2048 rows; n of 1, block - 1, block,
+    block + 1 and 2^12 +- 1; duplicate, all-ones, random keys and keys that
+    differ in the last word only."""
+    for block in (64, 512, 2048):
+        for n in sorted({1, block - 1, block, block + 1, 4095, 4097}):
+            for kind in ("dup", "ones", "prefix", "rand"):
+                words = to_carrier(_bitonic_keys(kind, n, w, n * w + block), dev)
+                rows = torch.randperm(n, device=dev)
+                got, want = block_sort(words, rows, block), block_sort_plain(words, rows, block)
+                assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
+                    (w, block, n, kind)
 
 
 @pytest.mark.parametrize("pk", [1, 16, 32])
@@ -94,20 +134,18 @@ def test_pk_window_and_probe_kernels_match_plain(dev, pk):
 
 
 def test_full_key_run_of_wide_keys_on_the_card(dev):
-    """23-word full keys, the widest whose 512-row block fits the kernel's
-    shared memory, sort as on the plain backend; 128-word full keys do not
-    fit, and the sort raises instead of launching."""
+    """23-word full keys (92 bytes) and the reference's widest, 512-byte
+    keys (128 words, past what a 512-row block holds in shared memory) sort
+    on the card as on the plain backend, through the bitonic kernel."""
     rng = np.random.default_rng(1)
-    ks = rows_to_keyset(rng.integers(97, 100, size=(700, 92), dtype=np.uint8))
-    got = ReconstructionPipeline(backend="cuda", device=dev).run(ks, full_keys=True)
-    want = ReconstructionPipeline(backend="torch", device=dev).run(ks, full_keys=True)
-    assert torch.equal(got.comp_sorted, want.comp_sorted)
-    assert torch.equal(got.row_sorted, want.row_sorted)
-    wide = rows_to_keyset(rng.integers(97, 100, size=(700, 512), dtype=np.uint8))
-    before = cudalib.LAUNCHES["bitonic_block_sort"]
-    with pytest.raises(ValueError, match="shared memory"):
-        ReconstructionPipeline(backend="cuda", device=dev).run(wide, full_keys=True)
-    assert cudalib.LAUNCHES["bitonic_block_sort"] == before
+    for width in (92, 512):
+        ks = rows_to_keyset(rng.integers(97, 100, size=(700, width), dtype=np.uint8))
+        before = cudalib.LAUNCHES["bitonic_block_sort"]
+        got = ReconstructionPipeline(backend="cuda", device=dev).run(ks, full_keys=True)
+        assert cudalib.LAUNCHES["bitonic_block_sort"] > before
+        want = ReconstructionPipeline(backend="torch", device=dev).run(ks, full_keys=True)
+        assert torch.equal(got.comp_sorted, want.comp_sorted)
+        assert torch.equal(got.row_sorted, want.row_sorted)
 
 
 def test_cuda_backend_matches_torch_backend_on_the_card(dev):

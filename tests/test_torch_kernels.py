@@ -31,6 +31,7 @@ from repro_torch.kernels.build.ref import pk_windows_ref  # noqa: E402
 from repro_torch.kernels.lookup import probe, probe_plain  # noqa: E402
 from repro_torch.kernels.lookup.ref import probe_ref  # noqa: E402
 from repro_torch.kernels.pext import pext, pext_plain  # noqa: E402
+from repro_torch.kernels.pext.ops import pext_segments, segment_plan  # noqa: E402
 from repro_torch.kernels.pext.ref import pext_ref  # noqa: E402
 
 r_dbitmap = jax.jit(RD.compute_dbitmap)
@@ -86,6 +87,67 @@ def test_pext_plain_wide_keys_matches_reference():
     np.testing.assert_array_equal(pext_ref(words, tplan), want)
 
 
+@pytest.mark.parametrize("n,w,mask", [(64, 1, 0x3FC0FF03), (255, 3, 0x3FC0FF03),
+                                      (257, 16, 0x0F0F0F0F), (300, 128, 0x01010101)])
+def test_pext_segments_match_reference(n, w, mask):
+    """The CUDA kernel's plan format (per-source-byte segments and their
+    tables), run by its tensor emulation, against the plain version and
+    the reference: interpret-mode ``pext`` on the shapes of
+    ``test_pext_plain_matches_reference_kernel``, ``extract_bits`` at 128
+    words (as ``test_pext_plain_wide_keys_matches_reference``)."""
+    words = _keys(n + w, n, w, mask) if w < 128 else _keys(9, n, w, mask)
+    bm = np.asarray(r_dbitmap(jnp.asarray(words)))
+    rplan, tplan = RC.make_plan(bm, w), TC.make_plan(bm, w)
+    if w < 128:
+        want = np.asarray(r_pext.pext(jnp.asarray(words), rplan, tile=256, interpret=True))
+    else:
+        want = np.asarray(RC.extract_bits(jnp.asarray(words), rplan))
+    got = pext_segments(_t(words), tplan)
+    np.testing.assert_array_equal(to_u32(got), want)
+    assert torch.equal(got, pext_plain(_t(words), tplan))
+
+
+def _plan_of(positions, w):
+    bm = np.zeros(w, np.uint32)
+    for p in positions:
+        bm[p // 32] |= np.uint32(1 << (31 - p % 32))
+    return TC.make_plan(bm, w)
+
+
+#: plans at the segment compiler's edges: name -> (kept bit positions, W)
+_PLAN_EDGES = {
+    "one_bit": ([77], 4),
+    "32_bits": (list(range(0, 64, 2)), 4),
+    "33_bits": (list(range(5, 38)), 3),
+    "straddling_bytes": (list(range(3, 33)) + list(range(40, 46)), 2),
+    "every_bit_of_a_word": ([1, 2] + list(range(32, 64)), 3),
+    "every_bit_of_128_words": (list(range(128 * 32)), 128),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_PLAN_EDGES))
+def test_pext_segment_plan_edges(name):
+    """Segments cover every kept bit once, in output order, and never cross
+    a destination word; the emulated kernel equals the plain version and
+    the scalar oracle."""
+    positions, w = _PLAN_EDGES[name]
+    plan = _plan_of(positions, w)
+    segments, tables = segment_plan(plan)
+    addr, offset, mult, dw = segments.astype(np.uint32).astype(np.int64).T
+    shift = np.log2(mult).astype(np.int64)
+    width = np.asarray([bin(int(m)).count("1") for m in tables.max(axis=1)])[offset // 256]
+    assert width.sum() == plan.n_bits
+    assert np.array_equal(dw, np.repeat(np.arange(plan.n_words_out), np.bincount(dw)))
+    assert ((shift + width <= 32) & (shift >= 0)).all()
+    first = dw * 32 + 32 - shift - width  # each segment's first output bit
+    assert np.array_equal(first, np.concatenate([[0], np.cumsum(width)[:-1]]))
+    assert np.array_equal(np.unique(addr ^ 3), np.unique(np.asarray(positions) // 8))
+    words = _keys(len(positions), 129, w)
+    got = pext_segments(_t(words), plan)
+    assert torch.equal(got, pext_plain(_t(words), plan))
+    np.testing.assert_array_equal(to_u32(got), pext_ref(words, plan))
+
+
 # ---------------------------------------------------------------------------
 # bitonic block sort (the network is unstable: equality with the reference
 # kernel, rows included, needs the same network lane for lane)
@@ -116,6 +178,22 @@ def test_bitonic_plain_matches_reference_kernel(kind, n, w, block):
     np.testing.assert_array_equal(to_u32(tk), ok)
     key_of_row = dict(zip(rows.tolist(), map(tuple, words)))
     assert [key_of_row[r] for r in to_u32(tr).tolist()] == list(map(tuple, to_u32(tk)))
+
+
+@pytest.mark.parametrize("kind,n", [("rand", 127), ("dup", 100), ("ones", 100)])
+def test_bitonic_plain_wide_keys_matches_reference_kernel(kind, n):
+    """24-word keys: the first width whose 512-row block does not fit the
+    CUDA kernel's 48 KB of shared memory, so that the kernel keeps 23
+    words there and breaks ties from device memory.  A 64-row block (both
+    n pad to 128 rows: one compile of the reference)."""
+    words = _bitonic_case(kind, n, 24)
+    rows = np.random.default_rng(n).permutation(n).astype(np.uint32)
+    rk, rr = r_bitonic.block_sort(jnp.asarray(words), jnp.asarray(rows), block=64,
+                                  interpret=True)
+    tk, tr = block_sort_plain(_t(words), _t(rows), block=64)
+    np.testing.assert_array_equal(to_u32(tk), np.asarray(rk))
+    np.testing.assert_array_equal(to_u32(tr), np.asarray(rr))
+    np.testing.assert_array_equal(to_u32(tk), block_sort_ref(words, rows, 64)[0])
 
 
 # ---------------------------------------------------------------------------
