@@ -11,13 +11,15 @@ device or any phase fails:
 1. build: compile the CUDA kernels from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, in parallel) and load them;
 2. kernels vs plain versions, byte for byte, at edge shapes: n not a tile
-   multiple, 128-word keys (pext, bitonic, merge-rank, dbit), pext plans
-   of 1, 32 and 33 bits, straddling bytes and whole words, bitonic keys of
-   24, 110, 111 and 128 words in 512-row blocks, duplicate and all-ones
-   keys (bitonic, merge-rank), searched runs of 1 and 2^k±1 rows
-   and pad rows of both reserved ranges (merge-rank), windows starting on
-   a word boundary and in the last word (pk-window, probe), equal pairs
-   and pairs that differ in the last bit only (dbit);
+   multiple, 128-word keys (pext, bitonic, pk-window, merge-rank, dbit),
+   pext plans of 1, 32 and 33 bits, straddling bytes and whole words,
+   bitonic keys of 24, 110, 111 and 128 words in 512-row blocks, duplicate
+   and all-ones keys (bitonic, merge-rank), searched runs of 1 and 2^k±1
+   rows, pad rows of both reserved ranges, unsorted queries, windows
+   larger than the staging buffer and 9- and 16-word keys (merge-rank),
+   windows starting on a word boundary and in the last word (pk-window in
+   both forms, probe), tables of odd widths and off 16 bytes (the gather),
+   equal pairs and pairs that differ in the last bit only (dbit);
 3. the slice: ``ReconstructionPipeline(backend="cuda").run`` on the
    paper's Zipf(s=1.5, n=64 bytes, m=0) keys (§6.3, Table 4 dataset 15)
    at 10M keys, rows shuffled by a seeded permutation, rids = row index;
@@ -55,9 +57,13 @@ device or any phase fails:
    (``target_p99_us`` = 4 x the unloaded p50): no torn read, no stale
    epoch, no error, every tenant served;
 9. kernel report: each kernel's launches on the main paths (phases 3, 5,
-   6, 7 and 8, each counted from 0), its time at the main path's shapes,
-   its plain version's time and the least time the card could take for
-   the same bytes and operations.
+   6, 7 and 8, each counted from 0), its device time at the main path's
+   shapes (and its time per call, host launch included), its plain
+   version's time and the least time the card could take for the same
+   bytes and operations; pk-window beside the plain gather of the same
+   rows alone, and its index form beside the gather-then-window pair it
+   replaces; merge-rank at the largest cascade merge and at the
+   incremental merge.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -96,7 +102,8 @@ from repro_torch.core.u32 import to_carrier, to_u32  # noqa: E402
 from repro_torch.data.synthetic import zipf_keys  # noqa: E402
 from repro_torch.kernels import cudalib  # noqa: E402
 from repro_torch.kernels.bitonic import DEFAULT_BLOCK, block_sort, block_sort_plain  # noqa: E402
-from repro_torch.kernels.build import pk_windows, pk_windows_plain  # noqa: E402
+from repro_torch.kernels.build import (  # noqa: E402
+    gather_windows, gather_windows_plain, pk_windows, pk_windows_plain)
 from repro_torch.kernels.dbit import adjacent_dbits, adjacent_dbits_plain  # noqa: E402
 from repro_torch.kernels.lookup import probe, probe_many, probe_many_plain, probe_plain  # noqa: E402
 from repro_torch.kernels.merge import merge_ranks, merge_ranks_plain  # noqa: E402
@@ -160,14 +167,24 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Median device time of ``fn`` in ms, by CUDA events, after a warm-up."""
+#: device cycles (about 1 ms) queued ahead of a timed call, so that the
+#: host has enqueued the call before its start event is reached
+SLEEP_CYCLES = 2_000_000
+
+
+def cuda_ms(fn, reps: int, *, with_launch: bool = False) -> float:
+    """Median time of one call of ``fn`` in ms, by CUDA events, after a
+    warm-up: its device time, with the call enqueued behind a device sleep
+    so that the host's launch overhead is not counted; or, with
+    ``with_launch``, from an idle device, the host's launch included."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if not with_launch:
+            torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         fn()
         end.record()
@@ -237,8 +254,11 @@ def edge_checks(dev, rng) -> None:
         check(same(torch.sort(kr).values, torch.arange(n, device=dev)),
               f"bitonic payload is not a permutation ({kind})")
     # pk-window: starts on word boundaries (sh == 0), in the last word,
-    # and outside the key (clipped), for pk 1, 16 and 32
-    for m, w in [(10007, 16), (333, 1), (4096, 4)]:
+    # and outside the key (clipped), for pk 1, 16 and 32; the gathered rows
+    # of the leaf form (16-byte chunks; 8-byte words for odd widths and a
+    # table off 16 bytes; rows of 128 words span four warps) and the index
+    # form, with repeated row ids
+    for m, w in [(10007, 16), (333, 1), (4096, 4), (3001, 3), (777, 128), (2049, 33)]:
         words = to_carrier(rand_words(rng, m, w), dev)
         top = w * 32
         starts = np.concatenate([
@@ -250,6 +270,14 @@ def edge_checks(dev, rng) -> None:
         for pk in (1, 16, 32):
             check(same(pk_windows(words, st, pk), pk_windows_plain(words, st, pk)),
                   f"pk-window kernel != plain at m={m} W={w} pk={pk}")
+            for table in (words, words[1:]):
+                rows = torch.as_tensor(rng.integers(0, table.shape[0], size=m), device=dev)
+                got, want = gather_windows(table, rows, st, pk), \
+                    gather_windows_plain(table, rows, st, pk)
+                check(same(got[0], want[0]) and same(got[1], want[1]),
+                      f"pk-window gather kernel != plain at m={m} W={w} pk={pk}")
+                check(same(pk_windows(table, st, pk, rows), pk_windows_plain(table, st, pk, rows)),
+                      f"pk-window index kernel != plain at m={m} W={w} pk={pk}")
     # probe: random leaves with dpos + 1 on word boundaries and in the last word
     for q, w, n_leaves, lc in [(3001, 16, 500, 12), (64, 2, 7, 3)]:
         top = w * 32
@@ -309,14 +337,24 @@ def edge_checks(dev, rng) -> None:
         keys = to_carrier(rand_words(rng, n, w, mask), dev)
         return sort_words_keyed(keys, row_base + torch.as_tensor(rng.permutation(n), device=dev))
 
+    # windows past the staging buffer (sampled, then probed) and within it;
+    # 9- and 16-word keys (ties on the staged words read the rest);
+    # each shape also with its queries out of order (every tile searches
+    # the whole run) and with one tile out of order
     for n_q, n_s, w, mask in [(1000, 4097, 3, 0x0F0F0F0F), (777, 1, 4, 0xFF),
                               (5003, 4095, 4, 0xFF), (300, 65537, 2, 0x3),
-                              (129, 300, 128, 0x1)]:
+                              (129, 300, 128, 0x1), (2000, 300001, 4, 0xFFFFFFFF),
+                              (3000, 20000, 9, 0x1), (1500, 100000, 16, 0x3)]:
         keys_s, rows_s = sorted_run(n_s, w, mask, 0)
         keys_q, rows_q = sorted_run(n_q, w, mask, n_s)
-        check(same(merge_ranks(keys_q, rows_q, keys_s, rows_s),
-                   merge_ranks_plain(keys_q, rows_q, keys_s, rows_s)),
-              f"merge-rank kernel != plain at n_q={n_q} n_s={n_s} W={w}")
+        shuffled = torch.as_tensor(rng.permutation(n_q), device=dev)
+        one_tile = torch.arange(n_q, device=dev)
+        one_tile[:256] = shuffled[shuffled < 256][:256]
+        for order, kind in [(None, "sorted"), (shuffled, "unsorted"), (one_tile, "one unsorted tile")]:
+            kq, rq = (keys_q, rows_q) if order is None else (keys_q[order], rows_q[order])
+            check(same(merge_ranks(kq, rq, keys_s, rows_s),
+                       merge_ranks_plain(kq, rq, keys_s, rows_s)),
+                  f"merge-rank kernel != plain at n_q={n_q} n_s={n_s} W={w} ({kind})")
     # all-ones keys against pad rows of both reserved ranges
     ones = torch.full((2048, 2), plancache.SENTINEL, dtype=torch.int64, device=dev)
     lane = torch.arange(1024, device=dev)
@@ -432,8 +470,8 @@ def make_queries(words: np.ndarray, rng, size: int = BATCH,
 
 #: the kernel functions of csrc/*.cu
 PORT_KERNEL_FUNCTIONS = ("pext_kernel", "bitonic_regs_kernel", "bitonic_wide_kernel",
-                         "pk_window_kernel", "probe_kernel", "probe_many_kernel",
-                         "merge_rank_kernel", "dbit_kernel")
+                         "gather_window_kernel", "pk_window_kernel", "probe_kernel",
+                         "probe_many_kernel", "merge_rank_kernel", "dbit_kernel")
 
 
 def port_kernel(name: str) -> str | None:
@@ -909,6 +947,7 @@ def main(argv=None) -> int:
     comp_m, rows_m = plancache._mask_run(comp, plancache.iota(b, dev), n, plancache.ROW_PAD_A)
     tree = res.tree
     starts = tree.leaf["dpos"].reshape(-1)[:n] + 1
+    rowc = res.row_sorted.clamp(0, n - 1)  # the build's gather: row ids in sorted order
     q0 = to_carrier(query_batches[0][0], dev)
     node = _descend(tree, q0)
     lc = tree.config.leaf_cap
@@ -937,10 +976,11 @@ def main(argv=None) -> int:
                                lambda: block_sort_plain(comp_m, rows_m),
                                2 * b * (wc + 1) * 4,
                                b // 2 * log_block * (log_block + 1) // 2),
-        "pk_window": (lambda: pk_windows(tree.sorted_full, starts, pk),
-                      lambda: pk_windows_plain(tree.sorted_full, starts, pk),
-                      (touched_words(starts, torch.arange(n, device=dev)) + 2 * n) * 4,
-                      n * 6),
+        # the leaf level: each gathered row read and written, a row id and a
+        # start read and a window written per entry
+        "pk_window": (lambda: gather_windows(words_dev, rowc, starts, pk),
+                      lambda: gather_windows_plain(words_dev, rowc, starts, pk),
+                      n * (2 * w + 3) * 4, n * 6),
         "probe": (lambda: probe(q0, node, tree.leaf["dpos"], tree.leaf["pk"], pk),
                   lambda: probe_plain(q0, node, tree.leaf["dpos"], tree.leaf["pk"], pk),
                   touched_words(pair_starts, pair_q) * 4 + BATCH * 4
@@ -968,17 +1008,18 @@ def main(argv=None) -> int:
 
     def rank_case(rank_args):
         """(kernel, plain, bytes, operations) of one rank pass: each query
-        row read once, one int32 written per query, and each searched row
-        a search can probe read once; a ceil(log2(n_s + 1))-step search
-        comparing up to Wc + 1 words (load and compare) per step.  Step l
-        of n_q binary searches probes at most min(2^l, n_q) distinct rows
-        of the searched run, whatever the queries."""
+        (key and row) read once, one int32 written per query, and the key
+        words of each searched row a search can probe read once (a row id
+        is needed only where two keys tie); a ceil(log2(n_s + 1))-step
+        search comparing up to Wc + 1 words (load and compare) per step.
+        Step l of n_q binary searches probes at most min(2^l, n_q) distinct
+        rows of the searched run, whatever the queries."""
         shape = rank_shape(rank_args)
         n_q, n_s, words = shape["n_q"], shape["n_s"], shape["words"]
         steps = n_s.bit_length()
         probed = min(n_s, sum(min(1 << lvl, n_q) for lvl in range(steps)))
         return (lambda: merge_ranks(*rank_args), lambda: merge_ranks_plain(*rank_args),
-                (n_q + probed) * words * 4 + n_q * 4, n_q * steps * 2 * words)
+                (n_q * words + probed * (words - 1)) * 4 + n_q * 4, n_q * steps * 2 * words)
 
     # the dbit pass over the compressed run of the 2^24 bucket: one read of
     # each key and one int32 per pair; xor, test and branch for each word
@@ -1003,6 +1044,7 @@ def main(argv=None) -> int:
         ops_ms = n_ops / PEAK_OPS_PER_S * 1e3
         return {
             "max_abs_err": err, "ms": cuda_ms(kernel_fn, args.reps),
+            "call_ms": cuda_ms(kernel_fn, args.reps, with_launch=True),
             "plain_ms": cuda_ms(plain_fn, 3), "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None, "match": match,
@@ -1028,7 +1070,28 @@ def main(argv=None) -> int:
     merge_entry["at_incremental_merge"] = {
         "shape": rank_shape(delta_rank["args"]),
         **measure(*rank_case(delta_rank["args"]), "merge_rank (incremental)")}
-    del comp, comp_m, rows_m, words_dev
+    # pk_window's leaf form beside the plain gather of the same rows alone
+    # (G), and its index form at the level above the leaves beside the
+    # pair it replaces: the level's rows gathered, then windowed
+    pk_entry = next(e for e in report if e["name"] == "pk_window")
+    gather_ms = cuda_ms(lambda: words_dev[rowc], args.reps)
+    pk_entry.update(shape={"entries": n, "key_words": w, "table_rows": b},
+                    gather_ms=gather_ms,
+                    gather_call_ms=cuda_ms(lambda: words_dev[rowc], args.reps, with_launch=True),
+                    over_gather=pk_entry["ms"] / gather_ms,
+                    minus_gather_ms=pk_entry["ms"] - gather_ms)
+    level = tree.levels[-1]
+    bc = level["hi"].reshape(-1).clamp(0, n - 1)
+    starts_l = level["dpos"].reshape(-1) + 1
+    full = tree.sorted_full
+    pk_entry["index_form"] = {
+        "entries": int(bc.shape[0]),
+        **measure(lambda: pk_windows(full, starts_l, pk, bc),
+                  lambda: pk_windows_plain(full, starts_l, pk, bc),
+                  (touched_words(starts_l, bc) + 3 * int(bc.shape[0])) * 4,
+                  int(bc.shape[0]) * 6, "pk_window (index form)"),
+        "unfused_ms": cuda_ms(lambda: pk_windows(full[bc], starts_l, pk), args.reps)}
+    del comp, comp_m, rows_m, words_dev, rowc
     print(json.dumps({"kernels": report}), flush=True)
     print(f"[wall] the whole script took {time.perf_counter() - t_script:.1f} s", flush=True)
     print(card_line(), flush=True)

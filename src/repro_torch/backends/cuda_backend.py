@@ -12,8 +12,10 @@
   (``kernels/merge``) as the one rank pass of the smaller run in the
   larger, then the plain complement scatter, as the reference's pallas
   backend does;
-* ``build`` — ``build_btree`` with the pk-window kernel (``kernels/build``)
-  as its ``slice_fn``;
+* ``build`` — ``build_btree`` with the pk-window kernel's two forms
+  (``kernels/build``): the leaf level's row gather with its windows as
+  ``gather_slice_fn``, the upper levels' windows of gathered rows as
+  ``slice_fn``;
 * ``lookup`` — ``lookup_batch_planned`` with the probe kernel
   (``kernels/lookup``) screening the leaf entries;
 * ``lookup_many`` — ``lookup_many_planned`` with the tenant-major probe
@@ -34,7 +36,7 @@ from repro_torch.core.dbits import sort_words_keyed
 from repro_torch.core.plancache import merge_padded, sort_padded
 from repro_torch.kernels import merge
 from repro_torch.kernels.bitonic import block_sort
-from repro_torch.kernels.build import pk_windows
+from repro_torch.kernels.build import gather_windows, pk_windows
 from repro_torch.kernels.dbit import adjacent_dbits
 from repro_torch.kernels.lookup import leaf_match_fn, leaf_match_many_fn
 from repro_torch.kernels.pext import pext
@@ -72,7 +74,8 @@ class CudaBackend(ExecutionBackend):
         from repro_torch.core.btree import build_btree
 
         return build_btree(comp_sorted, row_sorted, meta, words, lengths, config,
-                           rids=rids, slice_fn=pk_windows, n_valid=n_valid)
+                           rids=rids, slice_fn=pk_windows, gather_slice_fn=gather_windows,
+                           n_valid=n_valid)
 
     def lookup(self, tree, queries):
         from repro_torch.core.btree import lookup_batch_planned

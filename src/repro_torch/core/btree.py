@@ -14,9 +14,10 @@ max fanout 14 (leaf) / 9 (non-leaf), filled to ``max_fanout * fill``.
 
 Partial-key bits are obtained by paper option **C.b**: sliced from the
 record's full key (the base table is memory-resident).  ``build_btree``
-takes the slice as a ``slice_fn`` hook and ``lookup_batch_planned`` the
-leaf screen as a ``leaf_match_fn`` hook, so the CUDA backend plugs in its
-pk-window and probe kernels.  Every array equals the reference tree's:
+takes the leaf level's row gather and slice as a ``gather_slice_fn`` hook
+and the upper levels' slice as a ``slice_fn`` hook, and
+``lookup_batch_planned`` the leaf screen as a ``leaf_match_fn`` hook, so
+the CUDA backend plugs in its pk-window and probe kernels.  Every array equals the reference tree's:
 u32 fields (``rid``, ``pk``) are int64 carriers, the others int64 holding
 the reference's int32 values.
 
@@ -124,6 +125,21 @@ def _slice_bits(words: torch.Tensor, start: torch.Tensor, pk_bits: int) -> torch
     return (hi | lo) >> (32 - pk_bits)
 
 
+def _slice_rows(words: torch.Tensor, start: torch.Tensor, pk_bits: int,
+                rows: torch.Tensor | None = None) -> torch.Tensor:
+    """pk_bits bits of keys ``words[rows]`` (every row if ``rows`` is None)
+    starting at bit position start: the default ``slice_fn``."""
+    return _slice_bits(words if rows is None else words[rows], start, pk_bits)
+
+
+def _gather_slice(table: torch.Tensor, rows: torch.Tensor, start: torch.Tensor,
+                  pk_bits: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(table[rows], pk_bits bits of each gathered key from start)``: the
+    default ``gather_slice_fn``."""
+    full = table[rows]
+    return full, _slice_bits(full, start, pk_bits)
+
+
 def _pad_rows(x: torch.Tensor, rows: int, fill) -> torch.Tensor:
     pad = rows - x.shape[0]
     if pad <= 0:
@@ -142,6 +158,7 @@ def build_btree(
     rids: torch.Tensor | None = None,
     *,
     slice_fn=None,
+    gather_slice_fn=None,
     n_valid: int | None = None,
 ) -> BTree:
     """Bulk-build the tree from sorted compressed keys + row positions (§5.3).
@@ -153,14 +170,19 @@ def build_btree(
     keys mapped through D-offset — no full-key comparisons anywhere in the
     build, which is the point of the paper.
 
-    ``slice_fn(words, starts, pk)`` substitutes the partial-key window
-    gather (default ``_slice_bits``; the CUDA backend passes its pk-window
-    kernel) and must be bit-identical to it.  ``n_valid`` marks
-    ``comp_sorted``/``row_sorted`` as bucket-shaped with ``n_valid`` real
-    rows; only those are read.
+    Two hooks substitute the partial-key windows (the CUDA backend passes
+    its pk-window kernel's two forms) and must be bit-identical to their
+    defaults: ``gather_slice_fn(table, rows, starts, pk)`` returns the
+    leaf level's ``(table[rows], windows)`` (default ``_gather_slice``),
+    and ``slice_fn(words, starts, pk, rows)`` the windows of
+    ``words[rows]`` for an upper level (default ``_slice_rows``).
+    ``n_valid`` marks ``comp_sorted``/``row_sorted`` as bucket-shaped with
+    ``n_valid`` real rows; only those are read.
     """
     if slice_fn is None:
-        slice_fn = _slice_bits
+        slice_fn = _slice_rows
+    if gather_slice_fn is None:
+        gather_slice_fn = _gather_slice
     n = int(comp_sorted.shape[0]) if n_valid is None else int(n_valid)
     dev = comp_sorted.device
     comp = comp_sorted[:n]
@@ -171,22 +193,22 @@ def build_btree(
     d_off = torch.as_tensor(meta.d_offset().astype(np.int64), device=dev)
     n_off = int(d_off.shape[0])
 
-    # ---------------- leaf level: gathers, dpos, windows ----------------
+    # ---------------- leaf level: dpos, then the gather and windows ----------------
     rowc = row_sorted[:n].clamp(0, max(n - 1, 0))
-    sorted_full = table_words[rowc]
-    klen = (
-        torch.full((n,), W * 4, dtype=torch.int64, device=dev)
-        if table_lengths is None else table_lengths[rowc].to(torch.int64)
-    )
-    rid_sorted = rowc if rids is None else rids[rowc]
     # distinction bit position per sorted entry (entry 0 -> position 0)
     dpos_comp = adjacent_dbit_positions(comp)
     tail = torch.where(
         dpos_comp == NO_DBIT, torch.zeros_like(dpos_comp), d_off[dpos_comp.clamp(0, n_off - 1)]
     )
     dpos_full = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), tail])[:n]
-    # partial key: pk bits following the distinction bit position
-    pkeys = slice_fn(sorted_full, dpos_full + 1, pk)
+    # the full keys in sorted order, and the partial key of each: pk bits
+    # following the distinction bit position
+    sorted_full, pkeys = gather_slice_fn(table_words, rowc, dpos_full + 1, pk)
+    klen = (
+        torch.full((n,), W * 4, dtype=torch.int64, device=dev)
+        if table_lengths is None else table_lengths[rowc].to(torch.int64)
+    )
+    rid_sorted = rowc if rids is None else rids[rowc]
 
     n_leaves = -(-n // lc)
     rows = n_leaves * lc
@@ -217,7 +239,7 @@ def build_btree(
         levels.append({
             "child": child,
             "hi": hi_grid,
-            "pk": slice_fn(sorted_full[bc], dfull + 1, pk).reshape(n_nodes, nc),
+            "pk": slice_fn(sorted_full, dfull + 1, pk, bc).reshape(n_nodes, nc),
             "dpos": dfull.reshape(n_nodes, nc),
             "klen": klen[bc].reshape(n_nodes, nc),
         })

@@ -1,1 +1,1 @@
-from .ops import pk_windows, pk_windows_plain  # noqa: F401
+from .ops import gather_windows, gather_windows_plain, pk_windows, pk_windows_plain  # noqa: F401

@@ -45,7 +45,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
     "repro_pext": (_P, _P, _P, _L, _I, _I, _I, _I, _P),
     "repro_bitonic_block_sort": (_P, _P, _P, _P, _L, _I, _I, _P),
-    "repro_pk_window": (_P, _P, _P, _L, _I, _I, _P),
+    "repro_pk_window": (_P, _P, _P, _P, _L, _I, _I, _P),
+    "repro_gather_window": (_P, _P, _P, _P, _P, _L, _I, _I, _P),
     "repro_probe": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _P),
     "repro_merge_rank": (_P, _P, _P, _P, _P, _L, _L, _I, _P),
     "repro_dbit": (_P, _P, _L, _I, _P),

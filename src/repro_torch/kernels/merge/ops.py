@@ -4,12 +4,17 @@ and the kernel-ranked merge.
 The kernel (``csrc/merge_rank.cu``) replaces the TPU kernel
 ``repro/kernels/merge/kernel.py::_rank_kernel`` / ``merge_rank_planes``:
 the rank of each (key, row) query in a run sorted by (key, row), the row
-as the least-significant key word.  One thread per query runs a
-lower-bound binary search over the searched run in device memory, so the
-run has no size cap (the TPU kernel needed it to fit VMEM) and the query
-count needs no tile padding.  Its bound counts bytes (each row of both
-runs read once); in fact it waits on ``log2(n_s)`` dependent loads per
-query.
+as the least-significant key word.  The merge ranks one sorted run in
+another, so a block takes a tile of 256 consecutive queries: one warp
+finds the window of the searched run between the ranks of the tile's
+first query and the next tile's first; the block stages the tile and the
+window's key words (or an evenly spaced sample of a larger window) in
+shared memory, checks that the tile ascends, and searches there, ending a
+sampled window with a few probes in device memory.  A tile that does not
+ascend searches the whole run in device memory per query, so any query
+order gives exact ranks.  The searched run has no size cap (the TPU kernel
+needed it to fit VMEM).  Its bound counts bytes: each query and the key
+words of each searched row read once.
 """
 
 from __future__ import annotations
@@ -53,9 +58,9 @@ def merge_ranks(keys_q: torch.Tensor, rows_q: torch.Tensor,
         raise ValueError("each key needs one row id")
     if n_s >= 2**31:
         raise ValueError(f"a searched run of {n_s} rows overflows the int32 ranks")
-    out = torch.zeros((n_q,), dtype=torch.int32, device=dev)
     if n_q == 0 or n_s == 0:
-        return out
+        return torch.zeros((n_q,), dtype=torch.int32, device=dev)
+    out = torch.empty((n_q,), dtype=torch.int32, device=dev)
     cudalib.launch("merge_rank", "repro_merge_rank", dev,
                    keys_q, rows_q, keys_s, rows_s, out, n_q, n_s, w)
     return out

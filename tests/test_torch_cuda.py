@@ -26,7 +26,8 @@ from repro_torch.core.u32 import to_carrier, to_u32  # noqa: E402
 from repro_torch.data.synthetic import rows_to_keyset  # noqa: E402
 from repro_torch.kernels import cudalib  # noqa: E402
 from repro_torch.kernels.bitonic import block_sort, block_sort_plain  # noqa: E402
-from repro_torch.kernels.build import pk_windows, pk_windows_plain  # noqa: E402
+from repro_torch.kernels.build import (  # noqa: E402
+    gather_windows, gather_windows_plain, pk_windows, pk_windows_plain)
 from repro_torch.kernels.dbit import adjacent_dbits, adjacent_dbits_plain  # noqa: E402
 from repro_torch.kernels.lookup import probe, probe_many, probe_many_plain, probe_plain  # noqa: E402
 from repro_torch.kernels.merge import merge_ranks, merge_ranks_plain  # noqa: E402
@@ -133,6 +134,39 @@ def test_pk_window_and_probe_kernels_match_plain(dev, pk):
     assert bool(got[:128].all())
 
 
+def _window_starts(rng, m, w):
+    """Starts at random, on word boundaries (sh == 0), in the last word and
+    outside the key (clipped)."""
+    top = w * 32
+    return np.concatenate([rng.integers(-40, top + 40, size=m - m // 2),
+                           32 * rng.integers(0, w, size=m // 4),
+                           top - 1 - rng.integers(0, 32, size=m // 2 - m // 4)])
+
+
+@pytest.mark.parametrize("w", [1, 3, 4, 16, 33, 128])
+def test_pk_window_gather_and_index_forms_match_plain(dev, w):
+    """The leaf form gathers rows and takes their windows in one pass
+    (16-byte chunks for even widths on an aligned table, 8-byte words
+    otherwise, rows of 128 words across warps); the index form windows
+    ``words[rows]`` without gathering.  Row ids repeat; pk 1, 16 and 32."""
+    rng = np.random.default_rng(w)
+    n, m = 3001, 5000
+    table = to_carrier(_keys(w, n, w), dev)
+    st = torch.as_tensor(rng.permutation(_window_starts(rng, m, w)), device=dev)
+    for tb in (table, table[1:]):  # aligned, and off 16 bytes for odd widths
+        rows = torch.as_tensor(rng.integers(0, tb.shape[0], size=m), device=dev)
+        for pk in (1, 16, 32):
+            before = cudalib.LAUNCHES["pk_window"]
+            full, win = gather_windows(tb, rows, st, pk)
+            want_full, want_win = gather_windows_plain(tb, rows, st, pk)
+            assert torch.equal(full, want_full) and torch.equal(win, want_win), (w, pk)
+            assert torch.equal(full, tb[rows])
+            got = pk_windows(tb, st, pk, rows)
+            assert torch.equal(got, pk_windows_plain(tb, st, pk, rows)), (w, pk)
+            assert torch.equal(got, win)
+            assert cudalib.LAUNCHES["pk_window"] == before + 2
+
+
 def test_full_key_run_of_wide_keys_on_the_card(dev):
     """23-word full keys (92 bytes) and the reference's widest, 512-byte
     keys (128 words, past what a 512-row block holds in shared memory) sort
@@ -166,6 +200,11 @@ def test_cuda_backend_matches_torch_backend_on_the_card(dev):
     assert torch.equal(got.rid_sorted, want.rid_sorted)
     for key, val in want.tree.leaf.items():
         assert torch.equal(got.tree.leaf[key], val), key
+    assert len(got.tree.levels) == len(want.tree.levels) >= 1
+    for g, r in zip(got.tree.levels, want.tree.levels):
+        for key, val in r.items():
+            assert torch.equal(g[key], val), key
+    assert torch.equal(got.tree.sorted_full, want.tree.sorted_full)
     np.testing.assert_array_equal(got.meta.dbitmap, want.meta.dbitmap)
     f_ref, r_ref = get_backend("torch", device=dev).lookup(want.tree, queries)
     assert torch.equal(found, f_ref) and torch.equal(rid, r_ref)
@@ -180,12 +219,19 @@ def _sorted_run(seed, n, w, mask, row_base):
     return keys, rows
 
 
-@pytest.mark.parametrize("n_q,n_s,w,mask", [
+#: (n_q, n_s, W, key mask) of the merge-rank cases
+_RANK_CASES = [
     (1000, 4097, 3, 0x0F0F),  # n_q not a multiple of 256, n_s = 2^k + 1
     (300, 1, 2, 0xFF),  # n_s = 1
     (257, 4095, 4, 0x3),  # duplicate keys: ties fall to the row word
     (129, 300, 128, 0x1),  # 128-word keys
-])
+    (2000, 300001, 4, 0xFFFFFFFF),  # windows past the staging buffer: sampled
+    (3000, 20000, 9, 0x1),  # 9-word keys: ties on the 8 staged words
+    (1500, 100000, 16, 0x3),  # 16-word keys, sampled windows and ties
+]
+
+
+@pytest.mark.parametrize("n_q,n_s,w,mask", _RANK_CASES)
 def test_merge_rank_kernel_matches_plain(dev, n_q, n_s, w, mask):
     ks, rs = _sorted_run(n_s, n_s, w, mask, 0)
     kq, rq = _sorted_run(n_q, n_q, w, mask, n_s)
@@ -193,6 +239,22 @@ def test_merge_rank_kernel_matches_plain(dev, n_q, n_s, w, mask):
     before = cudalib.LAUNCHES["merge_rank"]
     assert torch.equal(merge_ranks(kq, rq, ks, rs), merge_ranks_plain(kq, rq, ks, rs))
     assert cudalib.LAUNCHES["merge_rank"] == before + 1
+
+
+@pytest.mark.parametrize("n_q,n_s,w,mask", _RANK_CASES)
+@pytest.mark.parametrize("order", ["shuffled", "one_tile"])
+def test_merge_rank_kernel_exact_on_unsorted_queries(dev, n_q, n_s, w, mask, order):
+    """Queries out of order: every tile (or only the first) searches the
+    whole run per query; the rest stage their windows."""
+    ks, rs = _sorted_run(n_s, n_s, w, mask, 0)
+    kq, rq = _sorted_run(n_q, n_q, w, mask, n_s)
+    perm = torch.randperm(n_q, generator=torch.Generator().manual_seed(n_q))
+    if order == "one_tile":
+        head = perm[perm < 256]
+        perm = torch.arange(n_q)
+        perm[: head.numel()] = head
+    ks, rs, kq, rq = (t.to(dev) for t in (ks, rs, kq[perm], rq[perm]))
+    assert torch.equal(merge_ranks(kq, rq, ks, rs), merge_ranks_plain(kq, rq, ks, rs))
 
 
 def test_merge_rank_kernel_on_pad_rows(dev):

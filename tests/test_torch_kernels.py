@@ -16,17 +16,22 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.core import btree as RB  # noqa: E402
 from repro.core import compress as RC  # noqa: E402
 from repro.core import dbits as RD  # noqa: E402
+from repro.core import metadata as RM  # noqa: E402
 from repro.kernels.bitonic import ops as r_bitonic  # noqa: E402
 from repro.kernels.build import ops as r_build  # noqa: E402
 from repro.kernels.lookup import ops as r_lookup  # noqa: E402
 from repro.kernels.pext import ops as r_pext  # noqa: E402
+from repro_torch.core import btree as TB  # noqa: E402
 from repro_torch.core import compress as TC  # noqa: E402
+from repro_torch.core import metadata as TM  # noqa: E402
 from repro_torch.core.u32 import to_carrier, to_u32  # noqa: E402
 from repro_torch.kernels.bitonic import block_sort_plain  # noqa: E402
 from repro_torch.kernels.bitonic.ref import block_sort_ref  # noqa: E402
-from repro_torch.kernels.build import pk_windows, pk_windows_plain  # noqa: E402
+from repro_torch.kernels.build import (  # noqa: E402
+    gather_windows, gather_windows_plain, pk_windows, pk_windows_plain)
 from repro_torch.kernels.build.ref import pk_windows_ref  # noqa: E402
 from repro_torch.kernels.lookup import probe, probe_plain  # noqa: E402
 from repro_torch.kernels.lookup.ref import probe_ref  # noqa: E402
@@ -211,6 +216,89 @@ def test_pk_window_plain_matches_reference_kernel(m, w, pk):
     got = to_u32(pk_windows(_t(words), torch.as_tensor(starts), pk))
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(pk_windows_ref(words, starts, pk), want)
+
+
+def _gathered(m, w, pk):
+    """A table of ``m`` keys, ``m`` row ids into it (repeats included) and
+    window starts, with the reference kernel's windows of the gathered rows
+    (``table[rows]`` as (W, m) planes, interpret mode) and
+    ``repro.core.btree._slice_bits`` of them; the shapes are
+    ``test_pk_window_plain_matches_reference_kernel``'s."""
+    table = _keys(m * w + 1, m, w)
+    rows = np.random.default_rng(m + w).integers(0, m, size=m)
+    starts = _starts(m + pk + 1, m, w)
+    full = jnp.asarray(table[rows])
+    want = np.asarray(r_build.pk_windows(full, jnp.asarray(starts, jnp.int32), pk,
+                                         tile=128, interpret=True))
+    np.testing.assert_array_equal(
+        np.asarray(RB._slice_bits(full, jnp.asarray(starts, jnp.int32), pk)), want)
+    return table, rows, starts, want
+
+
+@pytest.mark.parametrize("m,w", [(1000, 4), (513, 1), (300, 16)])
+@pytest.mark.parametrize("pk", [1, 16, 32])
+def test_pk_window_index_form_matches_reference_kernel(m, w, pk):
+    """The upper levels' form: windows of ``words[rows]`` without gathering
+    the rows; starts on word boundaries, in the last word and clipped."""
+    table, rows, starts, want = _gathered(m, w, pk)
+    got = pk_windows(_t(table), torch.as_tensor(starts), pk, torch.as_tensor(rows))
+    np.testing.assert_array_equal(to_u32(got), want)
+    plain = pk_windows_plain(_t(table), torch.as_tensor(starts), pk, torch.as_tensor(rows))
+    np.testing.assert_array_equal(to_u32(plain), want)
+
+
+@pytest.mark.parametrize("m,w", [(1000, 4), (513, 1), (300, 16)])
+@pytest.mark.parametrize("pk", [1, 16, 32])
+def test_gather_windows_plain_matches_reference_kernel(m, w, pk):
+    """The leaf level's fused form: the gathered rows and their windows."""
+    table, rows, starts, want = _gathered(m, w, pk)
+    for fn in (gather_windows, gather_windows_plain):
+        full, got = fn(_t(table), torch.as_tensor(rows), torch.as_tensor(starts), pk)
+        np.testing.assert_array_equal(to_u32(full), table[rows])
+        np.testing.assert_array_equal(to_u32(got), want)
+
+
+@pytest.mark.parametrize("n,w,mask", [(1000, 4, 0x00FF0F0F), (513, 16, 0x01010101)])
+def test_build_btree_with_kernel_hooks_matches_reference(n, w, mask):
+    """``build_btree`` with the pk-window kernel's two forms as its hooks
+    (their plain versions on the CPU) against the reference's tree, array
+    for array; every level's window goes through the row-index form."""
+    words = _keys(n + 7, n, w, mask)
+    rids = np.random.default_rng(n).permutation(n).astype(np.uint32)
+    lengths = np.full(n, w * 4, np.int32)
+    r_meta = RM.meta_from_keys(words)
+    t_meta = TM.meta_from_keys(words, "cpu")
+    np.testing.assert_array_equal(t_meta.dbitmap, r_meta.dbitmap)
+    plan = RC.make_plan(r_meta.dbitmap, w)
+    comp = np.asarray(RC.extract_bits(jnp.asarray(words), plan))
+    rows = np.arange(n, dtype=np.uint32)
+    r_comp, r_rows = RD.sort_words_keyed(jnp.asarray(comp), jnp.asarray(rows))
+    want = RB.build_btree(r_comp, r_rows, r_meta, jnp.asarray(words), jnp.asarray(lengths),
+                          rids=jnp.asarray(rids))
+    calls = {"gather": 0, "slice": 0}
+
+    def gather_fn(table, rows_, starts, pk):
+        calls["gather"] += 1
+        return gather_windows(table, rows_, starts, pk)
+
+    def slice_fn(words_, starts, pk, rows_):
+        calls["slice"] += 1
+        assert words_.shape[0] == n and rows_.shape == starts.shape
+        return pk_windows(words_, starts, pk, rows_)
+
+    got = TB.build_btree(_t(r_comp), torch.as_tensor(np.asarray(r_rows, np.int64)), t_meta,
+                         _t(words), torch.as_tensor(lengths), rids=_t(rids),
+                         slice_fn=slice_fn, gather_slice_fn=gather_fn)
+    assert calls == {"gather": 1, "slice": len(want.levels)} and len(want.levels) >= 1
+    for name in ("pk", "dpos", "klen", "rid", "valid"):
+        np.testing.assert_array_equal(np.asarray(got.leaf[name]).astype(np.asarray(
+            want.leaf[name]).dtype), np.asarray(want.leaf[name]), err_msg=name)
+    for g, r in zip(got.levels, want.levels):
+        for name in r:
+            np.testing.assert_array_equal(np.asarray(g[name]).astype(np.asarray(r[name]).dtype),
+                                          np.asarray(r[name]), err_msg=name)
+    np.testing.assert_array_equal(to_u32(got.sorted_full), np.asarray(want.sorted_full))
+    np.testing.assert_array_equal(to_u32(got.sorted_rids), np.asarray(want.sorted_rids))
 
 
 @pytest.mark.parametrize("q,w,n_leaves,lc,pk", [(200, 4, 30, 12, 16), (64, 2, 7, 3, 32),

@@ -11,6 +11,8 @@ version; ``tests/test_torch_cuda.py`` holds the kernels against those
 plain versions on a GPU.
 """
 
+import bisect
+from collections import Counter
 from functools import lru_cache
 
 import numpy as np
@@ -75,6 +77,13 @@ def _run_pair(case: str):
         return _sorted_run(rng, 257, 3, 0x0F0F, 0), _sorted_run(rng, 100, 3, 0x0F0F, 257)
     if case == "wide":
         return _sorted_run(rng, 129, 128, 0x1, 0), _sorted_run(rng, 64, 128, 0x1, 129)
+    if case == "sparse":  # windows past the staging budget: 300 queries in 8193 rows
+        return _sorted_run(rng, 8193, 3, 0x0F0F0F0F, 0), _sorted_run(rng, 300, 3, 0x0F0F0F0F, 8193)
+    if case == "unsorted":  # a query run out of order
+        (ks, rs), (kq, rq) = _sorted_run(rng, 257, 3, 0x0F0F, 0), _sorted_run(rng, 600, 3, 0x0F0F, 257)
+        order = rng.permutation(len(kq))
+        order[512:] = np.sort(order[512:])  # an ascending last tile beside unsorted ones
+        return (ks, rs), (kq[order], rq[order])
     if case == "empty_s":
         return _sorted_run(rng, 0, 3, 0xFF, 0), _sorted_run(rng, 50, 3, 0xFF, 0)
     if case == "empty_q":
@@ -112,6 +121,123 @@ def test_merge_ranks_plain_matches_reference_kernel(case):
                                           tile=128, interpret=True))
     got = t_merge.merge_ranks(_t(kq), _t(rq), _t(ks), _t(rs))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _tiled_ranks_model(kq, rq, ks, rs, tile, cap, samples, slack, lanes):
+    """A numpy model of ``csrc/merge_rank.cu``: the (lanes + 1)-way search
+    of each tile's first query (and of the last query) to within ``slack``
+    rows, the ascending check over
+    the tile and the next tile's first query, the dense staged window, the
+    splitter sample of a larger window with its few probes, and the
+    per-query search of a tile that does not ascend.  Returns the ranks and
+    how many tiles took each path."""
+    n_q, n_s = len(kq), len(ks)
+    q = [tuple(map(int, k)) + (int(r),) for k, r in zip(kq, rq)]
+    s = [tuple(map(int, k)) + (int(r),) for k, r in zip(ks, rs)]
+    out = np.zeros(n_q, np.int32)
+    paths = Counter()
+    if n_q == 0 or n_s == 0:
+        return out, paths
+
+    def bound(x):  # a group of lanes probes, a ballot counts those below
+        lo, hi = 0, n_s
+        while hi - lo > slack:
+            p = [lo + (lane + 1) * (hi - lo) // (lanes + 1) for lane in range(lanes)]
+            below = [s[i] < x for i in p]
+            c = sum(below)
+            assert below == [True] * c + [False] * (lanes - c)
+            if c > 0:
+                lo = p[c - 1] + 1
+            if c < lanes:
+                hi = p[c]
+        assert lo <= bisect.bisect_left(s, x) <= hi
+        return lo, hi
+
+    def search(x, lo, hi):  # a binary search in device memory: (rank, probes)
+        probes = 0
+        while lo < hi:
+            mid = (lo + hi) // 2
+            probes += 1
+            lo, hi = (mid + 1, hi) if s[mid] < x else (lo, mid)
+        return lo, probes
+
+    n_tiles = -(-n_q // tile)
+    bounds = [bound(q[min(t * tile, n_q - 1)]) for t in range(n_tiles + 1)]
+    for t in range(n_tiles):
+        q0 = t * tile
+        tq = min(tile, n_q - q0)
+        staged = q[q0:q0 + tq + 1]  # and the next tile's first, if any
+        if any(b < a for a, b in zip(staged, staged[1:])):
+            paths["unsorted"] += 1
+            for i in range(tq):
+                out[q0 + i] = search(q[q0 + i], 0, n_s)[0]
+            continue
+        lo, hi = bounds[t][0], max(bounds[t + 1][1], bounds[t][0])
+        if hi - lo <= cap:
+            paths["dense"] += 1
+            window = s[lo:hi]
+            for i in range(tq):
+                out[q0 + i] = lo + bisect.bisect_left(window, q[q0 + i])
+            continue
+        paths["sparse"] += 1
+        stride = -(-(hi - lo) // samples)
+        sample = s[lo:hi:stride]
+        assert len(sample) <= samples
+        for i in range(tq):
+            a = bisect.bisect_left(sample, q[q0 + i])
+            rank = lo
+            if a > 0:
+                rank, probes = search(q[q0 + i], lo + (a - 1) * stride + 1,
+                                      min(lo + a * stride, hi))
+                assert probes <= max(1, (stride - 1).bit_length())
+            out[q0 + i] = rank
+    return out, paths
+
+
+#: (queries per tile, window rows staged, sample rows of a larger window,
+#: rows a bound's range keeps, lanes per bound): the kernel's own (its
+#: staging buffer at the key's width), and a tiny one under which every
+#: case crosses tiles and most windows are sparse
+_MODEL_CONFIGS = {"kernel": (256, None, 256, 32, 16), "tiny": (8, 4, 2, 1, 2)}
+_MODEL_CASES = ["dup", "ones", "ns1", "pow2m1", "pow2p1", "wide", "sparse", "unsorted"]
+
+
+@lru_cache(maxsize=None)
+def _reference_ranks(case: str) -> np.ndarray:
+    """The reference merge-rank kernel's ranks (interpret mode), equal to
+    the numpy oracle's."""
+    (ks, rs), (kq, rq) = _run_pair(case)
+    want = np.asarray(r_merge.merge_ranks(jnp.asarray(kq), jnp.asarray(rq), jnp.asarray(ks),
+                                          jnp.asarray(rs), tile=128, interpret=True))
+    np.testing.assert_array_equal(merge_ranks_ref(kq, rq, ks, rs), want)
+    return want
+
+
+@pytest.mark.parametrize("config", sorted(_MODEL_CONFIGS))
+@pytest.mark.parametrize("case", _MODEL_CASES)
+def test_tiled_rank_model_matches_reference_kernel(case, config):
+    """The tiled design's numpy model against the reference kernel: dense
+    and sparse windows, windows past the staging budget, unsorted queries,
+    ties that fall to the row, n_s = 1 and 2^k +- 1, pad rows >= 2^31; the
+    port's plain version too."""
+    (ks, rs), (kq, rq) = _run_pair(case)
+    tile, cap, samples, slack, lanes = _MODEL_CONFIGS[config]
+    if cap is None:  # a 16 KiB buffer for the tile (KW <= 8 words and the row,
+        kw = min(ks.shape[1], 8)  # rounded to 16 bytes) and the window (KW words a row)
+        cap = (16 * 1024 - -(-(tile + 1) * (kw + 1) // 4) * 16) // (4 * kw)
+        samples = min(samples, cap)
+    got, paths = _tiled_ranks_model(kq, rq, ks, rs, tile, cap, samples, slack, lanes)
+    want = _reference_ranks(case)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        t_merge.merge_ranks_plain(_t(kq), _t(rq), _t(ks), _t(rs)).numpy(), want)
+    if case == "unsorted":
+        assert paths["unsorted"] > 0 and paths["dense"] + paths["sparse"] > 0
+    if case == "sparse" or config == "tiny" and case in ("dup", "pow2m1", "pow2p1"):
+        assert paths["sparse"] > 0
+    if config == "kernel" and case in ("dup", "pow2m1", "pow2p1", "wide", "ones") or \
+            case == "ns1":
+        assert paths == {"dense": len(kq) // tile + (len(kq) % tile > 0)}
 
 
 @pytest.mark.parametrize("case", MERGE_CASES)
