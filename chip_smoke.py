@@ -19,7 +19,11 @@ device or any phase fails:
    larger than the staging buffer and 9- and 16-word keys (merge-rank),
    windows starting on a word boundary and in the last word (pk-window in
    both forms, probe), tables of odd widths and off 16 bytes (the gather),
-   equal pairs and pairs that differ in the last bit only (dbit);
+   equal pairs and pairs that differ in the last bit only (dbit); both
+   forms of the probe (the mask and the lookup's leaf stage) on leaves
+   shaped as the build makes them, keys of 1, 4, 16, 17 and 128 words, pk
+   1, 16 and 32, one tree and a partial arena, leaves of 12 and 14 entries
+   with lanes past n, duplicate, all-ones and one-bit-off queries;
 3. the slice: ``ReconstructionPipeline(backend="cuda").run`` on the
    paper's Zipf(s=1.5, n=64 bytes, m=0) keys (§6.3, Table 4 dataset 15)
    at 10M keys, rows shuffled by a seeded permutation, rids = row index;
@@ -28,7 +32,9 @@ device or any phase fails:
    on the same card;
 4. lookups: four batches of 2^18 queries, half hits and half misses,
    then one more run and lookup batch traced with ``torch.profiler``
-   (device time by kernel, idle share of the window);
+   (device time by kernel, idle share of the window), and the lookup batch
+   alone traced: the PyTorch gathers left in it, and no gather of every
+   leaf lane's full key;
 5. chunked: the same keys through the pipeline's defaults (chunks of
    2^17 folded by the merge ladder above 2^19 keys), run twice, equal to
    phase 3's unchunked run byte for byte;
@@ -63,7 +69,9 @@ device or any phase fails:
    bytes and operations; pk-window beside the plain gather of the same
    rows alone, and its index form beside the gather-then-window pair it
    replaces; merge-rank at the largest cascade merge and at the
-   incremental merge.
+   incremental merge; probe and probe_many also in the leaf-stage form
+   their lookups run, beside the plain leaf stage and the unfused stage
+   (the mask form, then the PyTorch gather, compare and select).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -90,7 +98,9 @@ import torch  # noqa: E402
 from repro_torch.backends import get_backend  # noqa: E402
 from repro_torch.configs.paper_index import ZipfConfig  # noqa: E402
 from repro_torch.core import plancache  # noqa: E402
-from repro_torch.core.btree import NOT_FOUND_RID, _descend, _descend_many  # noqa: E402
+from repro_torch.core import btree  # noqa: E402
+from repro_torch.core.btree import (  # noqa: E402
+    NOT_FOUND_RID, _as_stack, _descend, _descend_many, _leaf_keys_many, _tenant_rows)
 from repro_torch.core.compress import make_plan  # noqa: E402
 from repro_torch.core.dbits import (  # noqa: E402
     NO_DBIT, compute_dbitmap, lex_less, sort_words, sort_words_keyed)
@@ -105,7 +115,11 @@ from repro_torch.kernels.bitonic import DEFAULT_BLOCK, block_sort, block_sort_pl
 from repro_torch.kernels.build import (  # noqa: E402
     gather_windows, gather_windows_plain, pk_windows, pk_windows_plain)
 from repro_torch.kernels.dbit import adjacent_dbits, adjacent_dbits_plain  # noqa: E402
-from repro_torch.kernels.lookup import probe, probe_many, probe_many_plain, probe_plain  # noqa: E402
+from repro_torch.kernels.lookup import (  # noqa: E402
+    leaf_stage, leaf_stage_many, leaf_stage_many_plain, leaf_stage_plain, probe, probe_many,
+    probe_many_plain, probe_plain)
+from repro_torch.kernels.lookup import ops as lookup_ops  # noqa: E402
+from repro_torch.kernels.lookup.ref import leaf_arena, member_tree  # noqa: E402
 from repro_torch.kernels.merge import merge_ranks, merge_ranks_plain  # noqa: E402
 from repro_torch.kernels.merge import ops as merge_ops  # noqa: E402
 from repro_torch.kernels.pext import pext, pext_plain  # noqa: E402
@@ -135,8 +149,7 @@ KERNELS = {
     "merge_rank": ("src/repro_torch/csrc/merge_rank.cu",
                    "src/repro/kernels/merge/kernel.py:45"),
     "dbit": ("src/repro_torch/csrc/dbit.cu", "src/repro/kernels/dbit/kernel.py:27"),
-    "probe_many": ("src/repro_torch/csrc/probe_many.cu",
-                   "src/repro/kernels/lookup/kernel.py:91"),
+    "probe_many": ("src/repro_torch/csrc/probe.cu", "src/repro/kernels/lookup/kernel.py:91"),
 }
 #: kernels each main path must launch
 PATH_KERNELS = {
@@ -330,6 +343,31 @@ def edge_checks(dev, rng) -> None:
                                           leaf_pk[ti], pk)),
                       f"probe_many tenant {ti} != probe at q={q} W={w} pk={pk}")
             check(bool(got.any()), "probe_many matched nothing")
+    # both forms of the lane-group probe on leaves shaped as the build makes
+    # them (kernels.lookup.ref.leaf_arena): keys of 1 to 128 words (the
+    # window's second word in the next 16-word chunk, full compares over
+    # several chunks), pk 1, 16 and 32, T = 1 and a partial arena, leaves of
+    # 12 and of 14 entries (the widest) with lanes past n, duplicate,
+    # all-ones and one-bit-off queries; the leaf-stage form also on one tree
+    for w in (1, 4, 16, 17, 128):
+        for pk in (1, 16, 32):
+            for t, t_cap, lc in [(1, 1, 12), (3, 4, 14)]:
+                arena, qs, nd = leaf_arena(int(rng.integers(1 << 30)), t, t_cap, 300, lc, w,
+                                           pk, 3001, dev)
+                lf, what = arena.leaf, f"T={t} of {t_cap} lc={lc} W={w} pk={pk}"
+                check(same(probe_many(qs, nd, lf["dpos"], lf["pk"], pk),
+                           probe_many_plain(qs, nd, lf["dpos"], lf["pk"], pk)),
+                      f"probe_many kernel != plain at {what}")
+                got, want = leaf_stage_many(arena, nd, qs), leaf_stage_many_plain(arena, nd, qs)
+                check(same(got[0], want[0]) and same(got[1], want[1]),
+                      f"probe_many leaf stage != plain at {what}")
+                check(bool(got[0].any()) and not bool(got[0].all()),
+                      f"the leaf stage found all or nothing at {what}")
+                one = member_tree(arena, 0)
+                got = leaf_stage(one, nd[0], qs[0])
+                want = leaf_stage_plain(one, nd[0], qs[0])
+                check(same(got[0], want[0]) and same(got[1], want[1]),
+                      f"probe leaf stage != plain at {what}")
     # merge-rank: n_q off any multiple of 256; searched runs of 1, 2^k - 1
     # and 2^k + 1 rows; duplicate keys whose ties fall to the row word;
     # 128-word keys
@@ -470,8 +508,8 @@ def make_queries(words: np.ndarray, rng, size: int = BATCH,
 
 #: the kernel functions of csrc/*.cu
 PORT_KERNEL_FUNCTIONS = ("pext_kernel", "bitonic_regs_kernel", "bitonic_wide_kernel",
-                         "gather_window_kernel", "pk_window_kernel", "probe_kernel",
-                         "probe_many_kernel", "merge_rank_kernel", "dbit_kernel")
+                         "gather_window_kernel", "pk_window_kernel", "probe_group_kernel",
+                         "merge_rank_kernel", "dbit_kernel")
 
 
 def port_kernel(name: str) -> str | None:
@@ -485,12 +523,42 @@ def port_kernel(name: str) -> str | None:
     return None
 
 
+@contextmanager
+def leaf_key_gathers():
+    """Record the shapes of the plain leaf stage's gathers of every lane's
+    full key (``core.btree._leaf_keys_many``) made inside the block."""
+    calls: list = []
+    orig = btree._leaf_keys_many
+
+    def spy(stacked, node):
+        calls.append(tuple(node.shape))
+        return orig(stacked, node)
+
+    btree._leaf_keys_many = lookup_ops._leaf_keys_many = spy
+    try:
+        yield calls
+    finally:
+        btree._leaf_keys_many = lookup_ops._leaf_keys_many = orig
+
+
+def device_ms_by_kernel(prof) -> list:
+    """(kernel name, device ms, calls) of a profile, largest first."""
+    from torch.autograd import DeviceType
+
+    return sorted(
+        ((e.key, e.self_device_time_total / 1e3, e.count)
+         for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+        key=lambda row: -row[1],
+    )
+
+
 def profile_slice(pipe, keyset, tree, queries, log_dir) -> dict:
     """One traced ``run`` of the slice plus one lookup batch under
     ``torch.profiler``: device time by kernel, and the share of the window
     in which the device ran nothing (busy time is the sum of device
-    events, which on one stream do not overlap)."""
-    from torch.autograd import DeviceType
+    events, which on one stream do not overlap).  Then the lookup batch
+    alone, traced: the device time of the PyTorch gathers left in it (the
+    descent's), and the leaf-key gathers it made (none on ``"cuda"``)."""
     from torch.profiler import ProfilerActivity, profile
 
     pipe._sync()
@@ -500,16 +568,25 @@ def profile_slice(pipe, keyset, tree, queries, log_dir) -> dict:
         pipe.backend.lookup(tree, queries)
         pipe._sync()
         wall = time.perf_counter() - t0
-    device = sorted(
-        ((e.key, e.self_device_time_total / 1e3, e.count)
-         for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-        key=lambda row: -row[1],
-    )
+    device = device_ms_by_kernel(prof)
     busy_ms = sum(ms for _, ms, _ in device)
+    with leaf_key_gathers() as gathers, \
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_l:
+        t0 = time.perf_counter()
+        pipe.backend.lookup(tree, queries)
+        pipe._sync()
+        lookup_wall = time.perf_counter() - t0
+    check(gathers == [], f"the cuda lookup gathered every leaf lane's full key: {gathers}")
+    lookup_device = device_ms_by_kernel(prof_l)
+    lookup_gathers = [[name[:60], ms, count] for name, ms, count in lookup_device
+                      if port_kernel(name) is None
+                      and ("gather" in name.lower() or "index" in name.lower())]
     if log_dir is not None:
         log_dir.mkdir(parents=True, exist_ok=True)
         (log_dir / "profile_device_ms.txt").write_text("".join(
             f"{ms:12.3f} ms {count:6d}x  {name}\n" for name, ms, count in device))
+        (log_dir / "profile_lookup_device_ms.txt").write_text("".join(
+            f"{ms:12.3f} ms {count:6d}x  {name}\n" for name, ms, count in lookup_device))
     return {
         "traced_wall_s": wall, "traced_stage_s": res.timings,
         "device_busy_s": busy_ms / 1e3, "idle_share": 1 - busy_ms / 1e3 / wall,
@@ -519,7 +596,56 @@ def profile_slice(pipe, keyset, tree, queries, log_dir) -> dict:
         "port_kernel_device_ms": {
             port_kernel(name): [ms, count] for name, ms, count in device
             if port_kernel(name) is not None},
+        "lookup_traced_wall_s": lookup_wall,
+        "lookup_device_busy_s": sum(ms for _, ms, _ in lookup_device) / 1e3,
+        "lookup_top_device_ms": [[name[:60], ms, count]
+                                 for name, ms, count in lookup_device[:8]],
+        "lookup_gather_device_ms": sum(ms for _, ms, _ in lookup_gathers),
+        "lookup_gather_kernels": lookup_gathers,
+        "lookup_leaf_key_gathers": len(gathers),
     }
+
+
+def unfused_leaf_stage(stacked, node, queries):
+    """The leaf stage with the probe unfused, as the ``"cuda"`` lookups
+    ran it before the leaf-stage form: the probe's mask form, then every
+    lane's full key gathered, compared, ANDed with the mask and
+    ``valid``, and the first match's rid."""
+    t = int(node.shape[0])
+    cand = probe_many(queries, node, stacked.leaf["dpos"], stacked.leaf["pk"],
+                      stacked.config.pk_bits)
+    keys = _leaf_keys_many(stacked, node)
+    eq = cand & (keys == queries[:, :, None, :]).all(dim=-1) \
+        & _tenant_rows(stacked.leaf["valid"], t, node)
+    found = eq.any(dim=2)
+    e = torch.argmax(eq.to(torch.int8), dim=2)
+    rid = torch.gather(_tenant_rows(stacked.leaf["rid"], t, node), 2, e[..., None])[..., 0]
+    return found, torch.where(found, rid, torch.full_like(rid, NOT_FOUND_RID))
+
+
+def leaf_stage_counts(stacked, node, queries) -> dict:
+    """What the leaf-stage form needs on these inputs, and its bytes (u32
+    width) and operations.  A candidate is a valid lane whose window
+    matches; the kernel compares candidates' full keys in lane order up to
+    the first full match.  Per query it reads its node id and words once,
+    per lane dpos, pk and valid, then the candidates' full keys and, where
+    found, one rid; it writes found and rid.  A window is about seven
+    integer operations, a word compared two."""
+    t, q = (int(x) for x in node.shape)
+    w, lc = int(queries.shape[2]), stacked.config.leaf_cap
+    cand = probe_many_plain(queries, node, stacked.leaf["dpos"], stacked.leaf["pk"],
+                            stacked.config.pk_bits) \
+        & _tenant_rows(stacked.leaf["valid"], t, node)
+    full = (_leaf_keys_many(stacked, node) == queries[:, :, None, :]).all(dim=-1) & cand
+    found = full.any(dim=2)
+    stop = torch.where(found, torch.argmax(full.to(torch.int8), dim=2), lc - 1)
+    reads = int((cand & (torch.arange(lc, device=node.device) <= stop[..., None])).sum())
+    n_found = int(found.sum())
+    return {"queries": t * q, "found": n_found, "full_keys_compared": reads,
+            "full_keys_plain_gathers": t * q * lc,
+            "bytes": t * q * (4 + 4 * w) + t * q * lc * 9 + reads * 4 * w + n_found * 4
+            + t * q * 5,
+            "operations": t * q * lc * 7 + reads * w * 2}
 
 
 def median_wall(fn, reps: int = 5) -> float:
@@ -721,8 +847,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     edge_checks(dev, rng)
     torch.cuda.synchronize()
-    print(f"[kernels] pext, bitonic, pk-window, probe, merge-rank, dbit, probe_many == "
-          f"plain at edge shapes ({time.perf_counter() - t0:.2f} s)", flush=True)
+    print(f"[kernels] pext, bitonic, pk-window, probe, merge-rank, dbit, probe_many (both "
+          f"forms) == plain at edge shapes ({time.perf_counter() - t0:.2f} s)", flush=True)
 
     # -- 3. the slice --------------------------------------------------------
     t0 = time.perf_counter()
@@ -1091,6 +1217,26 @@ def main(argv=None) -> int:
                   (touched_words(starts_l, bc) + 3 * int(bc.shape[0])) * 4,
                   int(bc.shape[0]) * 6, "pk_window (index form)"),
         "unfused_ms": cuda_ms(lambda: pk_windows(full[bc], starts_l, pk), args.reps)}
+    # probe and probe_many in the leaf-stage form their lookups run, at the
+    # same shapes: beside the plain stage (every lane's full key gathered,
+    # compared and selected) and the unfused stage (the mask form, then
+    # that gather, compare and select)
+    for name, stacked, node_s, queries_s, kernel_fn, plain_fn in [
+            ("probe", _as_stack(tree), node[None], q0[None],
+             lambda: leaf_stage(tree, node, q0), lambda: leaf_stage_plain(tree, node, q0)),
+            ("probe_many", st_m, node_m, q_m, lambda: leaf_stage_many(st_m, node_m, q_m),
+             lambda: leaf_stage_many_plain(st_m, node_m, q_m))]:
+        entry = next(e for e in report if e["name"] == name)
+        counts = leaf_stage_counts(stacked, node_s, queries_s)
+        entry["leaf_stage"] = {
+            **counts,
+            **measure(kernel_fn, plain_fn, counts["bytes"], counts["operations"],
+                      f"{name} (leaf stage)"),
+            "plain_stage_ms": cuda_ms(plain_fn, args.reps),
+            "unfused_stage_ms": cuda_ms(lambda: unfused_leaf_stage(stacked, node_s, queries_s),
+                                        args.reps)}
+        entry["leaf_stage"]["over_plain_stage"] = \
+            entry["leaf_stage"]["ms"] / entry["leaf_stage"]["plain_stage_ms"]
     del comp, comp_m, rows_m, words_dev, rowc
     print(json.dumps({"kernels": report}), flush=True)
     print(f"[wall] the whole script took {time.perf_counter() - t_script:.1f} s", flush=True)

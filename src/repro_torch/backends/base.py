@@ -163,8 +163,9 @@ class ExecutionBackend(abc.ABC):
         miss lanes ``NOT_FOUND_RID``; byte-identical across backends.  The
         default compares full keys at the leaf."""
         from repro_torch.core.btree import lookup_batch_planned
+        from repro_torch.kernels.lookup import leaf_stage_plain
 
-        return lookup_batch_planned(tree, queries)
+        return lookup_batch_planned(tree, queries, leaf_stage_fn=leaf_stage_plain)
 
     def lookup_many(self, stacked, queries: torch.Tensor, n_valid=None):
         """Fused point lookup over T stacked same-geometry trees.
@@ -179,8 +180,10 @@ class ExecutionBackend(abc.ABC):
         default compares full keys at the leaf (the oracle).
         """
         from repro_torch.core.btree import lookup_many_planned
+        from repro_torch.kernels.lookup import leaf_stage_many_plain
 
-        return lookup_many_planned(stacked, queries, n_valid)
+        return lookup_many_planned(stacked, queries, n_valid,
+                                   leaf_stage_fn=leaf_stage_many_plain)
 
     # ------------------------------------------------------- refresh meta
     def refresh_meta(self, comp_sorted: torch.Tensor, meta, ref_key,

@@ -16,11 +16,12 @@
   (``kernels/build``): the leaf level's row gather with its windows as
   ``gather_slice_fn``, the upper levels' windows of gathered rows as
   ``slice_fn``;
-* ``lookup`` — ``lookup_batch_planned`` with the probe kernel
-  (``kernels/lookup``) screening the leaf entries;
-* ``lookup_many`` — ``lookup_many_planned`` with the tenant-major probe
-  kernel (``kernels/lookup``) screening every tenant's leaf entries in
-  one launch per call;
+* ``lookup`` — ``lookup_batch_planned`` with the probe kernel's
+  leaf-stage form (``kernels/lookup``): the partial-key screen, the
+  full-key confirm of the candidates and the rid in one launch, no leaf
+  key gathered;
+* ``lookup_many`` — ``lookup_many_planned`` with the same form over every
+  tenant of the arena in one launch per call;
 * ``refresh_meta`` — the dbit kernel (``kernels/dbit``) computes the
   adjacent D-bit positions on the card; the base class's host scatter
   turns them into the bitmap.
@@ -38,7 +39,7 @@ from repro_torch.kernels import merge
 from repro_torch.kernels.bitonic import block_sort
 from repro_torch.kernels.build import gather_windows, pk_windows
 from repro_torch.kernels.dbit import adjacent_dbits
-from repro_torch.kernels.lookup import leaf_match_fn, leaf_match_many_fn
+from repro_torch.kernels.lookup import leaf_stage, leaf_stage_many
 from repro_torch.kernels.pext import pext
 
 from .base import ExecutionBackend, register_backend
@@ -80,10 +81,9 @@ class CudaBackend(ExecutionBackend):
     def lookup(self, tree, queries):
         from repro_torch.core.btree import lookup_batch_planned
 
-        return lookup_batch_planned(tree, queries, leaf_match_fn=leaf_match_fn)
+        return lookup_batch_planned(tree, queries, leaf_stage_fn=leaf_stage)
 
     def lookup_many(self, stacked, queries, n_valid=None):
         from repro_torch.core.btree import lookup_many_planned
 
-        return lookup_many_planned(stacked, queries, n_valid,
-                                   leaf_match_many_fn=leaf_match_many_fn)
+        return lookup_many_planned(stacked, queries, n_valid, leaf_stage_fn=leaf_stage_many)

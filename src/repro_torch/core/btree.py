@@ -15,9 +15,9 @@ max fanout 14 (leaf) / 9 (non-leaf), filled to ``max_fanout * fill``.
 Partial-key bits are obtained by paper option **C.b**: sliced from the
 record's full key (the base table is memory-resident).  ``build_btree``
 takes the leaf level's row gather and slice as a ``gather_slice_fn`` hook
-and the upper levels' slice as a ``slice_fn`` hook, and
-``lookup_batch_planned`` the leaf screen as a ``leaf_match_fn`` hook, so
-the CUDA backend plugs in its pk-window and probe kernels.  Every array equals the reference tree's:
+and the upper levels' slice as a ``slice_fn`` hook, and the lookups take
+their whole leaf stage as a ``leaf_stage_fn`` hook, so the CUDA backend
+plugs in its pk-window and probe kernels.  Every array equals the reference tree's:
 u32 fields (``rid``, ``pk``) are int64 carriers, the others int64 holding
 the reference's int32 values.
 
@@ -309,28 +309,25 @@ def search_batch(tree: BTree, queries: torch.Tensor):
 
 
 def lookup_batch_planned(
-    tree: BTree, queries: torch.Tensor, *, leaf_match_fn=None
+    tree: BTree, queries: torch.Tensor, *, leaf_stage_fn
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Batched point lookup (§4.3 search): ``(found (q,) bool, rid (q,))``
     with miss lanes set to :data:`NOT_FOUND_RID` — the backend ``lookup``
     op's byte-identity contract.
 
     It is :func:`lookup_many_planned` on a one-member arena.  The leaf
-    stage runs the substitutable ``leaf_match_fn(tree, node, keys,
-    queries) -> (q, lc) bool`` on the tree's own tensors (full-key
-    equality by default, the probe kernel's screen plus the full compare
-    on the CUDA backend), which must imply full-key equality bit for bit.
-    The reference pads the batch to a compile bucket and answers the pad
-    lanes as garbage; eager PyTorch needs no bucket, so only the real
-    queries are descended.
+    stage is ``leaf_stage_fn(tree, node, queries) -> (found, rid)`` on the
+    tree's own tensors (``kernels.lookup``'s plain leaf stage, or its
+    kernel on the CUDA backend).  The reference pads the batch to a
+    compile bucket and answers the pad lanes as garbage; eager PyTorch
+    needs no bucket, so only the real queries are descended.
     """
-    many_fn = None
-    if leaf_match_fn is not None:
-        def many_fn(stacked, node, keys, q):
-            del stacked
-            return leaf_match_fn(tree, node[0], keys[0], q[0])[None]
-    found, rid = lookup_many_planned(_as_stack(tree), queries[None],
-                                     leaf_match_many_fn=many_fn)
+    def many_fn(stacked, node, q):
+        del stacked
+        found, rid = leaf_stage_fn(tree, node[0], q[0])
+        return found[None], rid[None]
+
+    found, rid = lookup_many_planned(_as_stack(tree), queries[None], leaf_stage_fn=many_fn)
     return found[0], rid[0]
 
 
@@ -452,15 +449,8 @@ def _leaf_keys_many(stacked: BTree, node: torch.Tensor) -> torch.Tensor:
     return stacked.sorted_full[:t].reshape(t * n, w)[lanes.clamp(0, n - 1) + offset]
 
 
-def _leaf_match_many_full(tree, node, keys, queries):
-    """Default leaf probe: full-key equality over every entry lane,
-    tenant-major — ``keys`` (T, q, lc, W) against ``queries`` (T, q, W)."""
-    del tree, node
-    return (keys == queries[:, :, None, :]).all(dim=-1)
-
-
 def lookup_many_planned(
-    stacked: BTree, queries: torch.Tensor, n_valid=None, *, leaf_match_many_fn=None
+    stacked: BTree, queries: torch.Tensor, n_valid=None, *, leaf_stage_fn
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused multi-tenant point lookup over a :func:`stack_trees` arena.
 
@@ -478,13 +468,11 @@ def lookup_many_planned(
     The reference pads the query axis to a compile bucket and the tenant
     axis to the capacity, then slices both off; here only the ``T_q``
     given tenants and their ``q`` lanes are descended, which answers the
-    kept lanes identically.  ``leaf_match_many_fn(tree, node, keys,
-    queries) -> (T, q, lc) bool`` substitutes the leaf probe (the
-    tenant-major probe kernel on the CUDA backend) and must imply
-    full-key equality bit for bit.
+    kept lanes identically.  The leaf stage is ``leaf_stage_fn(stacked,
+    node, queries) -> (found, rid)`` on the (T, q) leaf nodes the descent
+    chose (``kernels.lookup``'s plain leaf stage, or its kernel on the CUDA
+    backend, which gathers no full key but the candidates').
     """
-    if leaf_match_many_fn is None:
-        leaf_match_many_fn = _leaf_match_many_full
     if queries.dim() != 3:
         raise ValueError(f"queries must be (T, q, W), got {tuple(queries.shape)}")
     t_q, q, _ = (int(s) for s in queries.shape)
@@ -498,11 +486,4 @@ def lookup_many_planned(
         nv = torch.as_tensor(np.minimum(nv, q), device=queries.device)
         live = torch.arange(q, device=queries.device)[None, :] < nv[:, None]
         queries = torch.where(live[..., None], queries, torch.full_like(queries, MASK32))
-    node = _descend_many(stacked, queries)
-    keys = _leaf_keys_many(stacked, node)
-    valid = _tenant_rows(stacked.leaf["valid"], t_q, node)
-    eq = leaf_match_many_fn(stacked, node, keys, queries) & valid
-    found = eq.any(dim=2)
-    e = torch.argmax(eq.to(torch.int8), dim=2)  # first maximum
-    rid = torch.gather(_tenant_rows(stacked.leaf["rid"], t_q, node), 2, e[..., None])[..., 0]
-    return found, torch.where(found, rid, torch.full_like(rid, NOT_FOUND_RID))
+    return leaf_stage_fn(stacked, _descend_many(stacked, queries), queries)

@@ -33,8 +33,7 @@ __all__ = ["LAUNCHES", "reset_launches", "build", "lib", "launch", "check_tensor
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("pext.cu", "bitonic.cu", "pk_window.cu", "probe.cu", "merge_rank.cu",
-           "dbit.cu", "probe_many.cu")
+SOURCES = ("pext.cu", "bitonic.cu", "pk_window.cu", "probe.cu", "merge_rank.cu", "dbit.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -47,10 +46,10 @@ _SIGNATURES = {
     "repro_bitonic_block_sort": (_P, _P, _P, _P, _L, _I, _I, _P),
     "repro_pk_window": (_P, _P, _P, _P, _L, _I, _I, _P),
     "repro_gather_window": (_P, _P, _P, _P, _P, _L, _I, _I, _P),
-    "repro_probe": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _P),
+    "repro_probe": (_P, _P, _P, _P, _P, _I, _L, _I, _I, _L, _I, _P),
+    "repro_probe_leaf": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _L, _L, _I, _P),
     "repro_merge_rank": (_P, _P, _P, _P, _P, _L, _L, _I, _P),
     "repro_dbit": (_P, _P, _L, _I, _P),
-    "repro_probe_many": (_P, _P, _P, _P, _P, _I, _L, _I, _I, _L, _I, _P),
 }
 
 #: launches per kernel wrapper since the last :func:`reset_launches`

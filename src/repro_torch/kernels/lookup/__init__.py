@@ -1,6 +1,8 @@
 from .ops import (  # noqa: F401
-    leaf_match_fn,
-    leaf_match_many_fn,
+    leaf_stage,
+    leaf_stage_many,
+    leaf_stage_many_plain,
+    leaf_stage_plain,
     probe,
     probe_many,
     probe_many_plain,

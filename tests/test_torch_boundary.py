@@ -43,7 +43,17 @@ from repro_torch.kernels import cudalib  # noqa: E402
 from repro_torch.kernels.bitonic import block_sort, block_sort_plain  # noqa: E402
 from repro_torch.kernels.build import pk_windows, pk_windows_plain  # noqa: E402
 from repro_torch.kernels.dbit import adjacent_dbits, adjacent_dbits_plain  # noqa: E402
-from repro_torch.kernels.lookup import probe, probe_many, probe_many_plain, probe_plain  # noqa: E402
+from repro_torch.kernels.lookup import (  # noqa: E402
+    leaf_stage,
+    leaf_stage_many,
+    leaf_stage_many_plain,
+    leaf_stage_plain,
+    probe,
+    probe_many,
+    probe_many_plain,
+    probe_plain,
+)
+from repro_torch.kernels.lookup.ref import leaf_arena, member_tree  # noqa: E402
 from repro_torch.kernels.merge import merge_ranks, merge_ranks_plain, merge_sorted  # noqa: E402
 from repro_torch.kernels.pext import pext, pext_plain  # noqa: E402
 from repro_torch.serve import MultiTenantEngine, TenantRegistry  # noqa: E402
@@ -228,6 +238,17 @@ def test_probe_many_wrapper_on_cpu_takes_plain_version(no_kernel_library):
     got = probe_many(queries, node, starts, leaf_pk.reshape(2, 4, 12), 16)
     assert torch.equal(got, probe_many_plain(queries, node, starts,
                                              leaf_pk.reshape(2, 4, 12), 16))
+
+
+def test_leaf_stage_wrappers_on_cpu_take_plain_versions(no_kernel_library):
+    arena, queries, node = leaf_arena(0, 2, 3, 6, 12, 3, 16, 40, "cpu")
+    got, want = leaf_stage_many(arena, node, queries), leaf_stage_many_plain(arena, node, queries)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert bool(got[0].any()) and not bool(got[0].all())
+    member = member_tree(arena, 0)
+    got = leaf_stage(member, node[0], queries[0])
+    want = leaf_stage_plain(member, node[0], queries[0])
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_merge_rank_and_dbit_wrappers_on_cpu_take_plain_versions(no_kernel_library):

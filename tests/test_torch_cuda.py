@@ -8,6 +8,7 @@ the CUDA toolkit:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
 import threading
 import time
 
@@ -29,7 +30,19 @@ from repro_torch.kernels.bitonic import block_sort, block_sort_plain  # noqa: E4
 from repro_torch.kernels.build import (  # noqa: E402
     gather_windows, gather_windows_plain, pk_windows, pk_windows_plain)
 from repro_torch.kernels.dbit import adjacent_dbits, adjacent_dbits_plain  # noqa: E402
-from repro_torch.kernels.lookup import probe, probe_many, probe_many_plain, probe_plain  # noqa: E402
+from repro_torch.core import btree  # noqa: E402
+from repro_torch.kernels.lookup import (  # noqa: E402
+    leaf_stage,
+    leaf_stage_many,
+    leaf_stage_many_plain,
+    leaf_stage_plain,
+    probe,
+    probe_many,
+    probe_many_plain,
+    probe_plain,
+)
+from repro_torch.kernels.lookup import ops as lookup_ops  # noqa: E402
+from repro_torch.kernels.lookup.ref import leaf_arena, member_tree  # noqa: E402
 from repro_torch.kernels.merge import merge_ranks, merge_ranks_plain  # noqa: E402
 from repro_torch.kernels.pext import pext, pext_plain  # noqa: E402
 from repro_torch.kernels.pext.ops import pext_segments  # noqa: E402
@@ -182,7 +195,7 @@ def test_full_key_run_of_wide_keys_on_the_card(dev):
         assert torch.equal(got.row_sorted, want.row_sorted)
 
 
-def test_cuda_backend_matches_torch_backend_on_the_card(dev):
+def test_cuda_backend_matches_torch_backend_on_the_card(dev, leaf_key_gathers):
     buf = np.random.default_rng(0).integers(97, 123, size=(3000, 64), dtype=np.uint8)
     ks = rows_to_keyset(buf)
     cudalib.reset_launches()
@@ -194,6 +207,7 @@ def test_cuda_backend_matches_torch_backend_on_the_card(dev):
     # chunk threshold)
     on_path = ("pext", "bitonic_block_sort", "pk_window", "probe", "dbit")
     assert all(cudalib.LAUNCHES[name] > 0 for name in on_path), cudalib.LAUNCHES
+    assert leaf_key_gathers == []  # the leaf stage ran in the kernel
     assert cudalib.LAUNCHES["merge_rank"] == 0
     want = ReconstructionPipeline(backend="torch", device=dev).run(ks)
     assert torch.equal(got.comp_sorted, want.comp_sorted)
@@ -336,6 +350,68 @@ def test_probe_many_kernel_matches_plain(dev, pk, t, t_cap):
     assert bool(got.any()) and not bool(got.all())
 
 
+@pytest.mark.parametrize("w", [1, 4, 16, 17, 128])
+@pytest.mark.parametrize("pk", [1, 16, 32])
+@pytest.mark.parametrize("t,t_cap,lc", [(1, 1, 12), (3, 4, 14)])
+def test_probe_kernel_forms_match_plain(dev, w, pk, t, t_cap, lc):
+    """Both forms of the lane-group kernel, tenant-major and single-tree,
+    against their plain versions on leaves shaped as the build makes them
+    (``kernels.lookup.ref.leaf_arena``): T = 1 and a partial arena, 301
+    queries (not a multiple of a block's 16), keys of 1 to 128 words (the
+    window's second word in the next 16-word chunk, the full compare over
+    several chunks), starts on word boundaries and in the last word, a
+    last leaf with lanes past n, duplicate and all-ones keys, queries one
+    bit off a key; pk 1 gives many candidates a query."""
+    arena, queries, node = leaf_arena(w * 100 + pk + t, t, t_cap, 40, lc, w, pk, 301, dev)
+    leaf = arena.leaf
+    before = dict(cudalib.LAUNCHES)
+    mask = probe_many(queries, node, leaf["dpos"], leaf["pk"], pk)
+    assert torch.equal(mask, probe_many_plain(queries, node, leaf["dpos"], leaf["pk"], pk))
+    found, rid = leaf_stage_many(arena, node, queries)
+    f_ref, r_ref = leaf_stage_many_plain(arena, node, queries)
+    assert torch.equal(found, f_ref) and torch.equal(rid, r_ref)
+    assert cudalib.LAUNCHES["probe_many"] == before["probe_many"] + 2
+    for ti in range(t):
+        member = member_tree(arena, ti)
+        got = probe(queries[ti], node[ti], member.leaf["dpos"], member.leaf["pk"], pk)
+        assert torch.equal(got, mask[ti])
+        assert torch.equal(got, probe_plain(queries[ti], node[ti], member.leaf["dpos"],
+                                            member.leaf["pk"], pk))
+        f1, r1 = leaf_stage(member, node[ti], queries[ti])
+        f2, r2 = leaf_stage_plain(member, node[ti], queries[ti])
+        assert torch.equal(f1, f2) and torch.equal(r1, r2)
+        assert torch.equal(f1, found[ti]) and torch.equal(r1, rid[ti])
+    assert cudalib.LAUNCHES["probe"] == before["probe"] + 2 * t
+    assert bool(found.any()) and not bool(found.all())
+
+
+def test_probe_kernel_wrappers_refuse_what_the_kernel_does_not_take(dev):
+    arena, queries, node = leaf_arena(0, 2, 2, 4, 12, 4, 16, 32, dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        leaf_stage_many(arena, node, queries[:, ::2])
+    with pytest.raises(TypeError, match="dtype"):
+        probe_many(queries, node.to(torch.int32), arena.leaf["dpos"], arena.leaf["pk"], 16)
+    wide = dataclasses.replace(arena, leaf={k: torch.cat([v, v], dim=2).contiguous()
+                                            for k, v in arena.leaf.items()})
+    with pytest.raises(ValueError, match="16 lanes"):
+        leaf_stage_many(wide, node, queries)
+
+
+@pytest.fixture
+def leaf_key_gathers(monkeypatch):
+    """Counts the plain leaf stage's gathers of every lane's full key."""
+    calls = []
+    orig = btree._leaf_keys_many
+
+    def spy(*args):
+        calls.append(args[1].shape)
+        return orig(*args)
+
+    monkeypatch.setattr(btree, "_leaf_keys_many", spy)
+    monkeypatch.setattr(lookup_ops, "_leaf_keys_many", spy)
+    return calls
+
+
 def _arena(dev, n_tenants=3, n=3000):
     """``n_tenants`` same-size 64-byte keysets built on the card, published
     into a registry: (registry, {tenant: keyset}, {tenant: tree})."""
@@ -351,10 +427,11 @@ def _arena(dev, n_tenants=3, n=3000):
     return reg, kss, trees
 
 
-def test_cuda_lookup_many_matches_torch_on_the_card(dev):
+def test_cuda_lookup_many_matches_torch_on_the_card(dev, leaf_key_gathers):
     """Three tenants in capacity 4, one ragged: one kernel launch, equal to
     the plain backend's lookup_many and, per tenant, to the single-tree
-    ``"cuda"`` lookup of the same (dead-lane-normalized) queries."""
+    ``"cuda"`` lookup of the same (dead-lane-normalized) queries; neither
+    ``"cuda"`` path gathers the leaves' full keys."""
     reg, kss, trees = _arena(dev)
     arena = reg.arena_of(0)
     assert arena.capacity == 4
@@ -366,12 +443,16 @@ def test_cuda_lookup_many_matches_torch_on_the_card(dev):
     before = cudalib.LAUNCHES["probe_many"]
     found, rid = cuda.lookup_many(arena.stacked, queries, n_valid)
     assert cudalib.LAUNCHES["probe_many"] == before + 1
-    f_ref, r_ref = get_backend("torch", device=dev).lookup_many(arena.stacked, queries, n_valid)
-    assert torch.equal(found, f_ref) and torch.equal(rid, r_ref)
+    singles = []
     for t in range(3):
         qt = queries[t].clone()
         qt[n_valid[t]:] = 0xFFFFFFFF
-        f1, r1 = cuda.lookup(trees[arena.slots[t]], qt)
+        singles.append(cuda.lookup(trees[arena.slots[t]], qt))
+    assert leaf_key_gathers == []
+    f_ref, r_ref = get_backend("torch", device=dev).lookup_many(arena.stacked, queries, n_valid)
+    assert len(leaf_key_gathers) == 1  # the plain stage does gather them
+    assert torch.equal(found, f_ref) and torch.equal(rid, r_ref)
+    for t, (f1, r1) in enumerate(singles):
         assert torch.equal(found[t], f1) and torch.equal(rid[t], r1)
     assert bool(found[0].any()) and not bool(found[0].all())
 
