@@ -116,7 +116,7 @@ from repro_torch.kernels.build import (  # noqa: E402
     gather_windows, gather_windows_plain, pk_windows, pk_windows_plain)
 from repro_torch.kernels.dbit import adjacent_dbits, adjacent_dbits_plain  # noqa: E402
 from repro_torch.kernels.lookup import (  # noqa: E402
-    leaf_stage, leaf_stage_many, leaf_stage_many_plain, leaf_stage_plain, probe, probe_many,
+    leaf_stage, leaf_stage_many, leaf_stage_many_plain, probe, probe_many,
     probe_many_plain, probe_plain)
 from repro_torch.kernels.lookup import ops as lookup_ops  # noqa: E402
 from repro_torch.kernels.lookup.ref import leaf_arena, member_tree  # noqa: E402
@@ -363,9 +363,9 @@ def edge_checks(dev, rng) -> None:
                       f"probe_many leaf stage != plain at {what}")
                 check(bool(got[0].any()) and not bool(got[0].all()),
                       f"the leaf stage found all or nothing at {what}")
-                one = member_tree(arena, 0)
-                got = leaf_stage(one, nd[0], qs[0])
-                want = leaf_stage_plain(one, nd[0], qs[0])
+                one = _as_stack(member_tree(arena, 0))
+                got = leaf_stage(one, nd[:1], qs[:1])
+                want = leaf_stage_many_plain(one, nd[:1], qs[:1])
                 check(same(got[0], want[0]) and same(got[1], want[1]),
                       f"probe leaf stage != plain at {what}")
     # merge-rank: n_q off any multiple of 256; searched runs of 1, 2^k - 1
@@ -624,28 +624,49 @@ def unfused_leaf_stage(stacked, node, queries):
 
 
 def leaf_stage_counts(stacked, node, queries) -> dict:
-    """What the leaf-stage form needs on these inputs, and its bytes (u32
-    width) and operations.  A candidate is a valid lane whose window
-    matches; the kernel compares candidates' full keys in lane order up to
-    the first full match.  Per query it reads its node id and words once,
-    per lane dpos, pk and valid, then the candidates' full keys and, where
-    found, one rid; it writes found and rid.  A window is about seven
-    integer operations, a word compared two."""
+    """What the leaf-stage form needs on these inputs, and the least bytes
+    (u32 width) and operations it implies.  A candidate is a valid lane
+    whose window matches; the kernel compares candidates' full keys in
+    lane order up to the first full match.  Each input is read once: a
+    query's node id; of each distinct leaf, every lane's valid and the
+    dpos and pk of its valid lanes; of a query with a candidate, all its
+    words, of one without, only the words its valid lanes' windows touch;
+    the full key of each distinct compared slot and the rid of each
+    distinct matching slot.  Found and rid are written per query.  A
+    window is about seven integer operations, a word compared two."""
     t, q = (int(x) for x in node.shape)
     w, lc = int(queries.shape[2]), stacked.config.leaf_cap
-    cand = probe_many_plain(queries, node, stacked.leaf["dpos"], stacked.leaf["pk"],
-                            stacked.config.pk_bits) \
-        & _tenant_rows(stacked.leaf["valid"], t, node)
+    dpos_all = stacked.leaf["dpos"]
+    valid = _tenant_rows(stacked.leaf["valid"], t, node)
+    dpos = _tenant_rows(dpos_all, t, node)
+    cand = probe_many_plain(queries, node, dpos_all, stacked.leaf["pk"],
+                            stacked.config.pk_bits) & valid
     full = (_leaf_keys_many(stacked, node) == queries[:, :, None, :]).all(dim=-1) & cand
     found = full.any(dim=2)
+    lane = torch.arange(lc, device=node.device)
     stop = torch.where(found, torch.argmax(full.to(torch.int8), dim=2), lc - 1)
-    reads = int((cand & (torch.arange(lc, device=node.device) <= stop[..., None])).sum())
-    n_found = int(found.sum())
-    return {"queries": t * q, "found": n_found, "full_keys_compared": reads,
+    compared = cand & (lane <= stop[..., None])
+    # (tenant, leaf) and (tenant, leaf, lane) ids, to count each input once
+    leaf_id = torch.arange(t, device=node.device)[:, None] * dpos_all.shape[1] + node
+    slot_id = leaf_id[..., None] * lc + lane
+    leaves, inverse = torch.unique(leaf_id, return_inverse=True)
+    leaf_valid = torch.zeros(int(leaves.numel()), lc, dtype=torch.bool, device=node.device)
+    leaf_valid[inverse.reshape(-1)] = valid.reshape(-1, lc)
+    has_cand = cand.any(dim=2)
+    # the query words that the valid windows of candidate-free queries touch
+    miss = ~has_cand[..., None] & valid
+    wi = (dpos + 1).clamp(0, w * 32 - 1)[miss] // 32
+    row = torch.arange(t * q, device=node.device).reshape(t, q, 1).expand(t, q, lc)[miss]
+    touched = int(torch.unique(torch.cat([row * w + wi, (row * w + wi + 1)[wi + 1 < w]])).numel())
+    keys_read = int(torch.unique(slot_id[compared]).numel())
+    rids_read = int(torch.unique(slot_id[full & (lane == stop[..., None])]).numel())
+    return {"queries": t * q, "found": int(found.sum()), "distinct_leaves": int(leaves.numel()),
+            "full_keys_compared": int(compared.sum()), "distinct_keys_compared": keys_read,
             "full_keys_plain_gathers": t * q * lc,
-            "bytes": t * q * (4 + 4 * w) + t * q * lc * 9 + reads * 4 * w + n_found * 4
+            "bytes": t * q * 4 + int(leaves.numel()) * lc + int(leaf_valid.sum()) * 2 * 4
+            + (int(has_cand.sum()) * w + touched) * 4 + keys_read * 4 * w + rids_read * 4
             + t * q * 5,
-            "operations": t * q * lc * 7 + reads * w * 2}
+            "operations": int(valid.sum()) * 7 + int(compared.sum()) * w * 2}
 
 
 def median_wall(fn, reps: int = 5) -> float:
@@ -1221,9 +1242,11 @@ def main(argv=None) -> int:
     # same shapes: beside the plain stage (every lane's full key gathered,
     # compared and selected) and the unfused stage (the mask form, then
     # that gather, compare and select)
+    one_tree = _as_stack(tree)
     for name, stacked, node_s, queries_s, kernel_fn, plain_fn in [
-            ("probe", _as_stack(tree), node[None], q0[None],
-             lambda: leaf_stage(tree, node, q0), lambda: leaf_stage_plain(tree, node, q0)),
+            ("probe", one_tree, node[None], q0[None],
+             lambda: leaf_stage(one_tree, node[None], q0[None]),
+             lambda: leaf_stage_many_plain(one_tree, node[None], q0[None])),
             ("probe_many", st_m, node_m, q_m, lambda: leaf_stage_many(st_m, node_m, q_m),
              lambda: leaf_stage_many_plain(st_m, node_m, q_m))]:
         entry = next(e for e in report if e["name"] == name)

@@ -163,9 +163,9 @@ class ExecutionBackend(abc.ABC):
         miss lanes ``NOT_FOUND_RID``; byte-identical across backends.  The
         default compares full keys at the leaf."""
         from repro_torch.core.btree import lookup_batch_planned
-        from repro_torch.kernels.lookup import leaf_stage_plain
+        from repro_torch.kernels.lookup import leaf_stage_many_plain
 
-        return lookup_batch_planned(tree, queries, leaf_stage_fn=leaf_stage_plain)
+        return lookup_batch_planned(tree, queries, leaf_stage_fn=leaf_stage_many_plain)
 
     def lookup_many(self, stacked, queries: torch.Tensor, n_valid=None):
         """Fused point lookup over T stacked same-geometry trees.

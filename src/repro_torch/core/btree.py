@@ -315,19 +315,14 @@ def lookup_batch_planned(
     with miss lanes set to :data:`NOT_FOUND_RID` — the backend ``lookup``
     op's byte-identity contract.
 
-    It is :func:`lookup_many_planned` on a one-member arena.  The leaf
-    stage is ``leaf_stage_fn(tree, node, queries) -> (found, rid)`` on the
-    tree's own tensors (``kernels.lookup``'s plain leaf stage, or its
-    kernel on the CUDA backend).  The reference pads the batch to a
-    compile bucket and answers the pad lanes as garbage; eager PyTorch
-    needs no bucket, so only the real queries are descended.
+    It is :func:`lookup_many_planned` on a one-member arena, and
+    ``leaf_stage_fn`` is its hook: ``(stacked, (1, q) node, (1, q, W)
+    queries) -> ((1, q) found, (1, q) rid)`` on :func:`_as_stack` of the
+    tree.  The reference pads the batch to a compile bucket and answers
+    the pad lanes as garbage; eager PyTorch needs no bucket, so only the
+    real queries are descended.
     """
-    def many_fn(stacked, node, q):
-        del stacked
-        found, rid = leaf_stage_fn(tree, node[0], q[0])
-        return found[None], rid[None]
-
-    found, rid = lookup_many_planned(_as_stack(tree), queries[None], leaf_stage_fn=many_fn)
+    found, rid = lookup_many_planned(_as_stack(tree), queries[None], leaf_stage_fn=leaf_stage_fn)
     return found[0], rid[0]
 
 

@@ -2,7 +2,6 @@ from .ops import (  # noqa: F401
     leaf_stage,
     leaf_stage_many,
     leaf_stage_many_plain,
-    leaf_stage_plain,
     probe,
     probe_many,
     probe_many_plain,

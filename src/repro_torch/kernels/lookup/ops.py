@@ -12,17 +12,17 @@ arena from the grid, so the single tree is the T = 1 case.  Two forms:
   against the entry's stored partial key — the TPU kernels' (q, lc) mask,
   taking the query's leaf node instead of the reference's materialized
   ``repeat(queries, lc)`` pair arrays;
-* the leaf-stage form (:func:`leaf_stage`, :func:`leaf_stage_many`): the
-  whole leaf stage of ``core.btree.lookup_batch_planned`` /
-  ``lookup_many_planned`` — screen, full-key confirm of the valid
+* the leaf-stage form (:func:`leaf_stage_many`, and :func:`leaf_stage` on
+  a one-member arena): the whole leaf stage of
+  ``core.btree.lookup_many_planned`` and ``lookup_batch_planned`` — screen, full-key confirm of the valid
   candidates in lane order, and the rid of the first full match — without
   gathering every lane's full key.  Its plain version is the plain leaf
   stage, which the ``"torch"`` backend runs.  A full match always
   window-matches (each entry's partial key is the window of its own key),
   so the two agree on every tree ``build_btree`` makes.
 
-Launches count under ``"probe"`` (single tree) and ``"probe_many"``
-(stacked arena).  Both forms are bound by bytes.
+Launches count under ``"probe"`` (single tree: :func:`probe`,
+:func:`leaf_stage`) and ``"probe_many"`` (stacked arena).  Both forms are bound by bytes.
 """
 
 from __future__ import annotations
@@ -31,7 +31,6 @@ import torch
 
 from repro_torch.core.btree import (
     NOT_FOUND_RID,
-    _as_stack,
     _leaf_keys_many,
     _slice_bits,
     _tenant_rows,
@@ -39,7 +38,7 @@ from repro_torch.core.btree import (
 from repro_torch.kernels import cudalib
 
 __all__ = ["probe", "probe_plain", "probe_many", "probe_many_plain",
-           "leaf_stage", "leaf_stage_plain", "leaf_stage_many", "leaf_stage_many_plain"]
+           "leaf_stage", "leaf_stage_many", "leaf_stage_many_plain"]
 
 #: lanes the kernel gives a query; a leaf (at most LEAF_MAX_FANOUT = 14
 #: entries) fits
@@ -156,13 +155,6 @@ def leaf_stage_many_plain(stacked, node: torch.Tensor, queries: torch.Tensor):
     return found, torch.where(found, rid, torch.full_like(rid, NOT_FOUND_RID))
 
 
-def leaf_stage_plain(tree, node: torch.Tensor, queries: torch.Tensor):
-    """:func:`leaf_stage_many_plain` on one tree: (q,) nodes, (q, W)
-    queries -> ((q,) found, (q,) rid)."""
-    found, rid = leaf_stage_many_plain(_as_stack(tree), node[None], queries[None])
-    return found[0], rid[0]
-
-
 def _leaf_launch(kernel, stacked, node, queries):
     """The leaf-stage form on a stacked arena, counted as ``kernel``."""
     leaf, pk = stacked.leaf, stacked.config.pk_bits
@@ -185,6 +177,12 @@ def _leaf_launch(kernel, stacked, node, queries):
     return found, rid
 
 
+def _leaf_stage(kernel, stacked, node, queries):
+    if queries.device.type == "cpu":
+        return leaf_stage_many_plain(stacked, node, queries)
+    return _leaf_launch(kernel, stacked, node, queries)
+
+
 def leaf_stage_many(stacked, node: torch.Tensor, queries: torch.Tensor):
     """``lookup_many_planned(leaf_stage_fn=...)``: the leaf stage of every
     tenant in one launch — ((T, q) found, (T, q) rid), equal to
@@ -194,15 +192,11 @@ def leaf_stage_many(stacked, node: torch.Tensor, queries: torch.Tensor):
     kernel's leaf-stage form (or raises).  ``node`` must hold valid leaf
     indices, as the descent produces them.
     """
-    if queries.device.type == "cpu":
-        return leaf_stage_many_plain(stacked, node, queries)
-    return _leaf_launch("probe_many", stacked, node, queries)
+    return _leaf_stage("probe_many", stacked, node, queries)
 
 
-def leaf_stage(tree, node: torch.Tensor, queries: torch.Tensor):
+def leaf_stage(stacked, node: torch.Tensor, queries: torch.Tensor):
     """``lookup_batch_planned(leaf_stage_fn=...)``: :func:`leaf_stage_many`
-    on one tree, counted as ``"probe"``."""
-    if queries.device.type == "cpu":
-        return leaf_stage_plain(tree, node, queries)
-    found, rid = _leaf_launch("probe", _as_stack(tree), node[None], queries[None])
-    return found[0], rid[0]
+    on the one-member arena of a single tree (``_as_stack(tree)``, (1, q)
+    nodes and (1, q, W) queries), counted as ``"probe"``."""
+    return _leaf_stage("probe", stacked, node, queries)

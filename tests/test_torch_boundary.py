@@ -31,7 +31,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.backends import get_backend  # noqa: E402
 from repro_torch.convert import tree_from_numpy  # noqa: E402
-from repro_torch.core.btree import BTreeConfig, stack_trees  # noqa: E402
+from repro_torch.core.btree import BTreeConfig, _as_stack, stack_trees  # noqa: E402
 from repro_torch.core.compress import make_plan  # noqa: E402
 from repro_torch.core.dbits import compute_dbitmap  # noqa: E402
 from repro_torch.core.keyformat import KeySet  # noqa: E402
@@ -47,7 +47,6 @@ from repro_torch.kernels.lookup import (  # noqa: E402
     leaf_stage,
     leaf_stage_many,
     leaf_stage_many_plain,
-    leaf_stage_plain,
     probe,
     probe_many,
     probe_many_plain,
@@ -246,8 +245,8 @@ def test_leaf_stage_wrappers_on_cpu_take_plain_versions(no_kernel_library):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert bool(got[0].any()) and not bool(got[0].all())
     member = member_tree(arena, 0)
-    got = leaf_stage(member, node[0], queries[0])
-    want = leaf_stage_plain(member, node[0], queries[0])
+    got = leaf_stage(_as_stack(member), node[:1], queries[:1])
+    want = leaf_stage_many_plain(_as_stack(member), node[:1], queries[:1])
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 

@@ -31,11 +31,11 @@ from repro_torch.kernels.build import (  # noqa: E402
     gather_windows, gather_windows_plain, pk_windows, pk_windows_plain)
 from repro_torch.kernels.dbit import adjacent_dbits, adjacent_dbits_plain  # noqa: E402
 from repro_torch.core import btree  # noqa: E402
+from repro_torch.core.btree import _as_stack  # noqa: E402
 from repro_torch.kernels.lookup import (  # noqa: E402
     leaf_stage,
     leaf_stage_many,
     leaf_stage_many_plain,
-    leaf_stage_plain,
     probe,
     probe_many,
     probe_many_plain,
@@ -377,10 +377,11 @@ def test_probe_kernel_forms_match_plain(dev, w, pk, t, t_cap, lc):
         assert torch.equal(got, mask[ti])
         assert torch.equal(got, probe_plain(queries[ti], node[ti], member.leaf["dpos"],
                                             member.leaf["pk"], pk))
-        f1, r1 = leaf_stage(member, node[ti], queries[ti])
-        f2, r2 = leaf_stage_plain(member, node[ti], queries[ti])
+        one, nd, qs = _as_stack(member), node[ti : ti + 1], queries[ti : ti + 1]
+        f1, r1 = leaf_stage(one, nd, qs)
+        f2, r2 = leaf_stage_many_plain(one, nd, qs)
         assert torch.equal(f1, f2) and torch.equal(r1, r2)
-        assert torch.equal(f1, found[ti]) and torch.equal(r1, rid[ti])
+        assert torch.equal(f1[0], found[ti]) and torch.equal(r1[0], rid[ti])
     assert cudalib.LAUNCHES["probe"] == before["probe"] + 2 * t
     assert bool(found.any()) and not bool(found.all())
 

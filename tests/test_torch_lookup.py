@@ -1,7 +1,7 @@
 """The port's lookup leaf stage against the JAX reference.
 
-The leaf stage (``kernels/lookup``: ``leaf_stage_plain`` and
-``leaf_stage_many_plain`` behind the ``leaf_stage_fn`` hook of
+The leaf stage (``kernels/lookup``: ``leaf_stage_many_plain`` and ``leaf_stage``
+behind the ``leaf_stage_fn`` hook of
 ``core.btree.lookup_batch_planned`` / ``lookup_many_planned``) is held
 against ``repro``'s ``lookup`` and ``lookup_many`` on the ``jnp`` backend
 and on the ``pallas`` backend (its probe kernel in interpret mode), on
@@ -43,7 +43,6 @@ from repro_torch.kernels.lookup import (  # noqa: E402
     leaf_stage,
     leaf_stage_many,
     leaf_stage_many_plain,
-    leaf_stage_plain,
 )
 
 ONES = np.uint32(0xFFFFFFFF)
@@ -122,7 +121,7 @@ def test_leaf_stage_through_hook_matches_reference_lookup(w):
     q = _queries(words, w)
     want = _ref_lookup("jnp", rtree, q)
     np.testing.assert_array_equal(_ref_lookup("pallas", rtree, q)[1], want[1])
-    for fn in (leaf_stage_plain, leaf_stage):
+    for fn in (leaf_stage_many_plain, leaf_stage):
         found, rid = lookup_batch_planned(tree, to_carrier(q, "cpu"), leaf_stage_fn=fn)
         np.testing.assert_array_equal(found.numpy(), want[0])
         np.testing.assert_array_equal(to_u32(rid), want[1])
