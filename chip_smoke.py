@@ -19,7 +19,10 @@ device or any phase fails:
    larger than the staging buffer and 9- and 16-word keys (merge-rank),
    windows starting on a word boundary and in the last word (pk-window in
    both forms, probe), tables of odd widths and off 16 bytes (the gather),
-   equal pairs and pairs that differ in the last bit only (dbit); both
+   both dbit forms (positions, bitmap) on runs of 1, 3, 4, 16, 33 and 128
+   words with equal pairs, pairs that differ in the last bit only, keys
+   equal but for the last word and row counts at the tile edges, in
+   place and off 16 bytes; both
    forms of the probe (the mask and the lookup's leaf stage) on leaves
    shaped as the build makes them, keys of 1, 4, 16, 17 and 128 words, pk
    1, 16 and 32, one tree and a partial arena, leaves of 12 and 14 entries
@@ -32,9 +35,11 @@ device or any phase fails:
    on the same card;
 4. lookups: four batches of 2^18 queries, half hits and half misses,
    then one more run and lookup batch traced with ``torch.profiler``
-   (device time by kernel, idle share of the window), and the lookup batch
-   alone traced: the PyTorch gathers left in it, and no gather of every
-   leaf lane's full key;
+   (device time by kernel, idle share of the window, the device-to-host
+   copies), the refresh alone traced (its wall, and its device-to-host
+   bytes: the Wc bitmap words), and the lookup batch alone traced: the
+   PyTorch gathers left in it, and no gather of every leaf lane's full
+   key;
 5. chunked: the same keys through the pipeline's defaults (chunks of
    2^17 folded by the merge ladder above 2^19 keys), run twice, equal to
    phase 3's unchunked run byte for byte;
@@ -71,7 +76,10 @@ device or any phase fails:
    replaces; merge-rank at the largest cascade merge and at the
    incremental merge; probe and probe_many also in the leaf-stage form
    their lookups run, beside the plain leaf stage and the unfused stage
-   (the mask form, then the PyTorch gather, compare and select).
+   (the mask form, then the PyTorch gather, compare and select); dbit in
+   its positions form at the build's run, its bitmap form at the
+   refresh's and at meta_from_keys' sorted full keys (beside the same
+   form reading whole rows), with its launches by form.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -83,6 +91,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from contextlib import contextmanager
@@ -114,7 +123,8 @@ from repro_torch.kernels import cudalib  # noqa: E402
 from repro_torch.kernels.bitonic import DEFAULT_BLOCK, block_sort, block_sort_plain  # noqa: E402
 from repro_torch.kernels.build import (  # noqa: E402
     gather_windows, gather_windows_plain, pk_windows, pk_windows_plain)
-from repro_torch.kernels.dbit import adjacent_dbits, adjacent_dbits_plain  # noqa: E402
+from repro_torch.kernels.dbit import (  # noqa: E402
+    PROBE_WORDS, adjacent_dbitmap, adjacent_dbitmap_plain, adjacent_dbits, adjacent_dbits_plain)
 from repro_torch.kernels.lookup import (  # noqa: E402
     leaf_stage, leaf_stage_many, leaf_stage_many_plain, probe, probe_many,
     probe_many_plain, probe_plain)
@@ -401,17 +411,30 @@ def edge_checks(dev, rng) -> None:
     check(same(merge_ranks(ones[:1000], rows_q, ones, rows_s),
                merge_ranks_plain(ones[:1000], rows_q, ones, rows_s)),
           "merge-rank kernel != plain on all-ones keys and pad rows")
-    # dbit: equal pairs, a pair that differs in the last bit of the last
-    # word only, 128-word keys
-    for n, w, mask in [(5003, 3, 0x00FF00FF), (300, 128, 0x01010101), (4097, 16, 0x3)]:
-        keys = sort_words(to_carrier(rand_words(rng, n, w, mask), dev))[0]
-        keys[n // 2] = keys[n // 2 - 1]
-        keys[3] = keys[2]
-        keys[3, -1] ^= 1
-        got = adjacent_dbits(keys)
-        check(same(got, adjacent_dbits_plain(keys)), f"dbit kernel != plain at n={n} W={w}")
-        check(int(got[2]) == 32 * w - 1 and int(got[n // 2 - 1]) == NO_DBIT,
-              f"dbit kernel misses the last-bit or the equal pair at W={w}")
+    # dbit, both forms: equal pairs, a pair that differs in the last bit
+    # of the last word only, keys equal but for the last word (rows walk
+    # on past the first sector), pair counts at the tile edges (a block
+    # takes 256 pairs), runs in place and off 16 bytes
+    for w in (1, 3, 4, 16, 33, 128):
+        for n in (2, 256, 257, 258, 4097, 20001):
+            keys = sort_words(to_carrier(rand_words(rng, n, w, 0x00FF00FF), dev))[0]
+            keys[n // 2] = keys[n // 2 - 1]
+            if n > 4:
+                keys[3] = keys[2]
+                keys[3, -1] ^= 1
+            tail = torch.zeros((n, w), dtype=torch.int64, device=dev)
+            tail[:, -1] = torch.arange(n, device=dev) // 2
+            for kind, run in (("random", keys), ("last word", tail)):
+                flat = torch.cat([run.new_zeros(1), run.reshape(-1)])
+                for where, view in (("in place", run), ("off 16 bytes", flat[1:].view(n, w))):
+                    what = f"n={n} W={w} ({kind}, {where})"
+                    got = adjacent_dbits(view)
+                    check(same(got, adjacent_dbits_plain(view)), f"dbit kernel != plain at {what}")
+                    check(same(adjacent_dbitmap(view), adjacent_dbitmap_plain(view)),
+                          f"dbit bitmap form != plain at {what}")
+                    if kind == "random" and n > 4:
+                        check(int(got[2]) == 32 * w - 1 and int(got[n // 2 - 1]) == NO_DBIT,
+                              f"dbit kernel misses the last-bit or the equal pair at {what}")
 
 
 # ---------------------------------------------------------------------------
@@ -441,9 +464,18 @@ def results_equal(got, want, what: str) -> None:
               f"{what}: meta.{field} differs")
 
 
+def path_launches() -> dict:
+    """Each kernel wrapper's launches since the last reset, and the dbit
+    kernel's by form."""
+    return {**cudalib.LAUNCHES, "dbit_by_form": dict(cudalib.LAUNCHES_BY_FORM["dbit"])}
+
+
 def check_launches(path: str, launches: dict) -> None:
     for name in PATH_KERNELS[path]:
         check(launches[name] > 0, f"the {path} path never launched the {name} kernel")
+    # every path builds (positions form) and refreshes (bitmap form)
+    for form, count in launches["dbit_by_form"].items():
+        check(count > 0, f"the {path} path never launched the dbit kernel's {form} form")
 
 
 @contextmanager
@@ -552,12 +584,24 @@ def device_ms_by_kernel(prof) -> list:
     )
 
 
+def dtoh_bytes(prof, trace: Path) -> list:
+    """The bytes of each device-to-host copy of a profile, largest first,
+    read from its exported trace (written to ``trace``)."""
+    prof.export_chrome_trace(str(trace))
+    events = json.loads(trace.read_text())["traceEvents"]
+    return sorted((int(e["args"]["bytes"]) for e in events
+                   if e.get("cat") == "gpu_memcpy" and "DtoH" in e.get("name", "")),
+                  reverse=True)
+
+
 def profile_slice(pipe, keyset, tree, queries, log_dir) -> dict:
     """One traced ``run`` of the slice plus one lookup batch under
-    ``torch.profiler``: device time by kernel, and the share of the window
-    in which the device ran nothing (busy time is the sum of device
-    events, which on one stream do not overlap).  Then the lookup batch
-    alone, traced: the device time of the PyTorch gathers left in it (the
+    ``torch.profiler``: device time by kernel, the share of the window in
+    which the device ran nothing (busy time is the sum of device events,
+    which on one stream do not overlap) and the device-to-host copies.
+    Then the refresh alone, traced: its wall and its device-to-host bytes,
+    which must be the run's Wc bitmap words.  Then the lookup batch alone,
+    traced: the device time of the PyTorch gathers left in it (the
     descent's), and the leaf-key gathers it made (none on ``"cuda"``)."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -570,6 +614,24 @@ def profile_slice(pipe, keyset, tree, queries, log_dir) -> dict:
         wall = time.perf_counter() - t0
     device = device_ms_by_kernel(prof)
     busy_ms = sum(ms for _, ms, _ in device)
+    # the refresh alone, from the run's sorted compressed keys and the
+    # metadata they were extracted under
+    meta_x = dataclasses.replace(res.meta, dbitmap=res.extract_bitmap)
+    wc = int(res.comp_sorted.shape[1])
+    pipe._sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_r:
+        t0 = time.perf_counter()
+        refreshed = pipe.refresh_meta(res.comp_sorted, meta_x, keyset.words[0])
+        refresh_wall = time.perf_counter() - t0
+    check(np.array_equal(refreshed.dbitmap, res.meta.dbitmap),
+          "the refresh traced alone gave another D-bitmap than the run's")
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_dir = log_dir if log_dir is not None else Path(tmp)
+        trace_dir.mkdir(parents=True, exist_ok=True)
+        run_dtoh = dtoh_bytes(prof, trace_dir / "profile_run_trace.json")
+        refresh_dtoh = dtoh_bytes(prof_r, trace_dir / "profile_refresh_trace.json")
+    check(refresh_dtoh == [wc * 8],
+          f"the refresh copied {refresh_dtoh} bytes to the host, not its {wc} bitmap words")
     with leaf_key_gathers() as gathers, \
             profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_l:
         t0 = time.perf_counter()
@@ -590,6 +652,9 @@ def profile_slice(pipe, keyset, tree, queries, log_dir) -> dict:
     return {
         "traced_wall_s": wall, "traced_stage_s": res.timings,
         "device_busy_s": busy_ms / 1e3, "idle_share": 1 - busy_ms / 1e3 / wall,
+        "dtoh_copies": len(run_dtoh), "dtoh_bytes": sum(run_dtoh),
+        "dtoh_largest_bytes": run_dtoh[:6],
+        "refresh_traced_wall_s": refresh_wall, "refresh_dtoh_bytes": refresh_dtoh,
         "top_device_ms": [[name[:60], ms, count] for name, ms, count in device[:10]],
         # the port's own kernels (csrc/*.cu, in anonymous namespaces; a
         # template's name starts with its return type)
@@ -667,6 +732,43 @@ def leaf_stage_counts(stacked, node, queries) -> dict:
             + (int(has_cand.sum()) * w + touched) * 4 + keys_read * 4 * w + rids_read * 4
             + t * q * 5,
             "operations": int(valid.sum()) * 7 + int(compared.sum()) * w * 2}
+
+
+def dbit_counts(keys: torch.Tensor) -> dict:
+    """What the adjacent D-bits of a sorted run need on these keys: a pair
+    compares its words up to the first that differs (all of them if the
+    keys are equal), so a row is read up to the further of its two pairs'
+    first differences; ``past_first_sector`` counts the pairs that differ
+    only after the kernel's first probe."""
+    n, w = (int(x) for x in keys.shape)
+    pos = adjacent_dbits_plain(keys).to(torch.int64)
+    upto = torch.where(pos == NO_DBIT, w, pos // 32 + 1)
+    need = torch.zeros(n, dtype=torch.int64, device=keys.device)
+    need[:-1] = upto
+    need[1:] = torch.maximum(need[1:], upto)
+    return {"rows": n, "key_words": w, "words_compared": int(upto.sum()),
+            "words_read": int(need.sum()),
+            "past_first_sector": int((upto > PROBE_WORDS).sum())}
+
+
+def dbit_cost(counts: dict, form: str) -> tuple[int, int]:
+    """(bytes at u32 width, operations) of one dbit form on these counts:
+    the words each row needs read once, and one int32 a pair (positions)
+    or the W bitmap words written; xor, test and branch a word compared
+    and one clz a pair (and one OR, bitmap)."""
+    pairs = counts["rows"] - 1
+    out = pairs * 4 if form == "positions" else counts["key_words"] * 4
+    return (counts["words_read"] * 4 + out,
+            3 * counts["words_compared"] + pairs * (1 if form == "positions" else 2))
+
+
+def dbit_floors(counts: dict, form: str) -> dict:
+    """The bytes bound if every word were read (u32 width), and the floor
+    if every sector is read at the int64 carrier's width, in ms."""
+    n, w = counts["rows"], counts["key_words"]
+    out = (n - 1) * 4 if form == "positions" else w * 8
+    return {"all_words_bound_ms": (n * w * 4 + out) / PEAK_BYTES_PER_S * 1e3,
+            "carrier_floor_ms": (n * w * 8 + out) / PEAK_BYTES_PER_S * 1e3}
 
 
 def median_wall(fn, reps: int = 5) -> float:
@@ -755,7 +857,7 @@ def multitenant_phase(args, dev, rng, launches: dict) -> dict:
     check(not any(th.is_alive() for th in threads) and sorted(answers) == list(range(N_TENANTS)),
           f"the engine answered tenants {sorted(answers)} of {N_TENANTS}")
     torch.cuda.synchronize()
-    launches["multitenant"] = dict(cudalib.LAUNCHES)
+    launches["multitenant"] = path_launches()
     check_launches("multitenant", launches["multitenant"])
     eng = engine.stats()
     engine.shutdown()
@@ -829,7 +931,7 @@ def mt_load_phase(args, dev, launches: dict) -> None:
     check_load(plain, "mt_load")
     slo = run_multitenant_load(**opts, target_p99_us=4 * plain["unloaded_p50_us"])
     check_load(slo, "mt_load with SLO")
-    launches["mt_load"] = dict(cudalib.LAUNCHES)
+    launches["mt_load"] = path_launches()
     check_launches("mt_load", launches["mt_load"])
     print(f"[mt_load] {json.dumps(plain)}", flush=True)
     print(f"[mt_load] slo {json.dumps(slo)}", flush=True)
@@ -905,7 +1007,7 @@ def main(argv=None) -> int:
         answers.append(pipe.backend.lookup(res.tree, q))
         torch.cuda.synchronize()
         t_lookup.append(time.perf_counter() - t1)
-    launches = {"slice": dict(cudalib.LAUNCHES)}
+    launches = {"slice": path_launches()}
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     check_launches("slice", launches["slice"])
 
@@ -965,7 +1067,7 @@ def main(argv=None) -> int:
         t1 = time.perf_counter()
         res_c = pipe_c.run(keyset)
         chunked_wall = time.perf_counter() - t1
-    launches["chunked"] = dict(cudalib.LAUNCHES)
+    launches["chunked"] = path_launches()
     check_launches("chunked", launches["chunked"])
     st = res_c.stats
     check(st["chunked"] == -(-n // pipe_c.chunk_size),
@@ -1035,7 +1137,7 @@ def main(argv=None) -> int:
         t1 = time.perf_counter()
         inc, folded = pipe_c.run_incremental(prev, keyset, delta, keep_rows=keep, meta=meta)
         inc_wall = time.perf_counter() - t1
-    launches["incremental"] = dict(cudalib.LAUNCHES)
+    launches["incremental"] = path_launches()
     check_launches("incremental", launches["incremental"])
     check(inc.stats["incremental"] is True, "run_incremental fell back to the full run")
     check(inc.stats["n_delta"] == nd and inc.stats["n_deleted"] == n - int(keep.sum()),
@@ -1168,16 +1270,13 @@ def main(argv=None) -> int:
         return (lambda: merge_ranks(*rank_args), lambda: merge_ranks_plain(*rank_args),
                 (n_q * words + probed * (words - 1)) * 4 + n_q * 4, n_q * steps * 2 * words)
 
-    # the dbit pass over the compressed run of the 2^24 bucket: one read of
-    # each key and one int32 per pair; xor, test and branch for each word
-    # up to the first that differs, and one clz
-    dpos = adjacent_dbits(res.comp_sorted)
-    dbit_words = torch.where(dpos == NO_DBIT, wc, dpos // 32 + 1)
     cases["merge_rank"] = rank_case(cascade_rank["args"])
-    cases["dbit"] = (lambda: adjacent_dbits(res.comp_sorted),
-                     lambda: adjacent_dbits_plain(res.comp_sorted),
-                     n * wc * 4 + (n - 1) * 4, 3 * int(dbit_words.sum()) + (n - 1))
-    del dpos, dbit_words
+    # dbit in the positions form at the build's run (the sorted compressed
+    # keys of the slice), the entry's own numbers
+    comp_run, full_run = res.comp_sorted, tree.sorted_full
+    comp_counts, full_counts = dbit_counts(comp_run), dbit_counts(full_run)
+    cases["dbit"] = (lambda: adjacent_dbits(comp_run), lambda: adjacent_dbits_plain(comp_run),
+                     *dbit_cost(comp_counts, "positions"))
 
     def measure(kernel_fn, plain_fn, n_bytes, n_ops, what):
         got, want = kernel_fn(), plain_fn()
@@ -1260,6 +1359,27 @@ def main(argv=None) -> int:
                                         args.reps)}
         entry["leaf_stage"]["over_plain_stage"] = \
             entry["leaf_stage"]["ms"] / entry["leaf_stage"]["plain_stage_ms"]
+    # dbit's bitmap form at the refresh's run and at meta_from_keys' sorted
+    # full keys (there also reading whole rows, as the probe width of the
+    # full key), beside the u32 bound of all words and the floor of every
+    # sector at the int64 carrier's width
+    dbit_entry = next(e for e in report if e["name"] == "dbit")
+    dbit_entry.update(
+        form="positions", shape=comp_counts,
+        launches_by_form={form: sum(path["dbit_by_form"][form] for path in launches.values())
+                          for form in cudalib.LAUNCHES_BY_FORM["dbit"]},
+        **dbit_floors(comp_counts, "positions"))
+    dbit_entry["bitmap_form"] = {
+        "shape": comp_counts,
+        **measure(lambda: adjacent_dbitmap(comp_run), lambda: adjacent_dbitmap_plain(comp_run),
+                  *dbit_cost(comp_counts, "bitmap"), "dbit (bitmap form)"),
+        **dbit_floors(comp_counts, "bitmap")}
+    dbit_entry["full_key_bitmap_form"] = {
+        "shape": full_counts,
+        **measure(lambda: adjacent_dbitmap(full_run), lambda: adjacent_dbitmap_plain(full_run),
+                  *dbit_cost(full_counts, "bitmap"), "dbit (full-key bitmap form)"),
+        **dbit_floors(full_counts, "bitmap"),
+        "whole_row_ms": cuda_ms(lambda: adjacent_dbitmap(full_run, probe_words=w), args.reps)}
     del comp, comp_m, rows_m, words_dev, rowc
     print(json.dumps({"kernels": report}), flush=True)
     print(f"[wall] the whole script took {time.perf_counter() - t_script:.1f} s", flush=True)

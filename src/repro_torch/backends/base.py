@@ -98,8 +98,12 @@ class ExecutionBackend(abc.ABC):
 
     name: str = "?"
 
-    #: the adjacent-D-bit pass of ``refresh_meta`` (None: the plain pass)
-    dbit_fn: Callable | None = None
+    #: the adjacent-D-bit passes over a sorted run (None: the plain pass):
+    #: ``dbitmap_fn(sorted_words) -> (W,)`` bitmap words, for
+    #: ``refresh_meta`` and the pipeline's ``meta_from_keys``;
+    #: ``dpos_fn(sorted_words) -> (n-1,)`` positions, for the build
+    dbitmap_fn: Callable | None = None
+    dpos_fn: Callable | None = None
 
     def __init__(self, device=None) -> None:
         self.device = resolve_device(device)
@@ -150,12 +154,13 @@ class ExecutionBackend(abc.ABC):
     def build(self, comp_sorted, row_sorted, meta, words, lengths, config,
               rids=None, n_valid: int | None = None):
         """Stage 3 (§5.3): bottom-up bulk build of the partial-key B+tree
-        with the plain pk-window gather; backends may substitute their own
-        (trees must be byte-identical across backends)."""
+        with the plain pk-window gather and the backend's ``dpos_fn``;
+        backends may substitute their own (trees must be byte-identical
+        across backends)."""
         from repro_torch.core.btree import build_btree
 
         return build_btree(comp_sorted, row_sorted, meta, words, lengths, config,
-                           rids=rids, n_valid=n_valid)
+                           rids=rids, dpos_fn=self.dpos_fn, n_valid=n_valid)
 
     # ------------------------------------------------------------- lookup
     def lookup(self, tree, queries: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -190,17 +195,17 @@ class ExecutionBackend(abc.ABC):
                      n_valid: int | None = None):
         """Stage 4 (§4.3): recompute DS-metadata at the opportune time.
 
-        The adjacent D-bit positions of the sorted run are computed on the
-        device (by ``dbit_fn``); only that (n-1,) vector crosses to the
-        host, where one vectorized scatter-OR sets the bitmap words
-        (``meta_on_rebuild``).
+        The adjacent D-bits of the sorted run are OR-reduced to (Wc,)
+        bitmap words on the device (by ``dbitmap_fn``); only those words
+        cross to the host, where each set bit maps through D-offset into
+        the full-key bitmap (``meta_on_rebuild``).
         """
         from repro_torch.core.metadata import meta_on_rebuild
-        from repro_torch.core.plancache import adjacent_dpos_padded
+        from repro_torch.core.plancache import adjacent_dbitmap_padded
 
-        dpos = adjacent_dpos_padded(comp_sorted, n_valid=n_valid, impl=self.dbit_fn)
+        bits = adjacent_dbitmap_padded(comp_sorted, n_valid=n_valid, impl=self.dbitmap_fn)
         comp_unused = np.zeros((0, int(comp_sorted.shape[1])), np.uint32)
-        return meta_on_rebuild(comp_unused, meta, np.asarray(ref_key), dpos_comp=dpos)
+        return meta_on_rebuild(comp_unused, meta, np.asarray(ref_key), dbitmap_comp=bits)
 
     # ------------------------------------------------ later slices (raise)
     def fused_extract_sort(self, *args, **kwargs):

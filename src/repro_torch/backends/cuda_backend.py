@@ -12,19 +12,22 @@
   (``kernels/merge``) as the one rank pass of the smaller run in the
   larger, then the plain complement scatter, as the reference's pallas
   backend does;
-* ``build`` — ``build_btree`` with the pk-window kernel's two forms
-  (``kernels/build``): the leaf level's row gather with its windows as
-  ``gather_slice_fn``, the upper levels' windows of gathered rows as
-  ``slice_fn``;
+* ``build`` — ``build_btree`` with the dbit kernel's positions form
+  (``kernels/dbit``) as ``dpos_fn``, the leaf entries' D-bits, and the
+  pk-window kernel's two forms (``kernels/build``): the leaf level's row
+  gather with its windows as ``gather_slice_fn``, the upper levels'
+  windows of gathered rows as ``slice_fn``;
 * ``lookup`` — ``lookup_batch_planned`` with the probe kernel's
   leaf-stage form (``kernels/lookup``): the partial-key screen, the
   full-key confirm of the candidates and the rid in one launch, no leaf
   key gathered;
 * ``lookup_many`` — ``lookup_many_planned`` with the same form over every
   tenant of the arena in one launch per call;
-* ``refresh_meta`` — the dbit kernel (``kernels/dbit``) computes the
-  adjacent D-bit positions on the card; the base class's host scatter
-  turns them into the bitmap.
+* ``refresh_meta`` — the dbit kernel's bitmap form reduces the sorted
+  run's adjacent D-bits to its Wc bitmap words on the card; the base
+  class maps their set bits through D-offset on the host.  The
+  pipeline's ``meta_from_keys`` runs the same form over the sorted full
+  keys (``dbitmap_fn``).
 
 On a CPU device every wrapper takes its plain version, so the backend is
 testable without a card; on a CUDA device it launches the kernels.
@@ -38,7 +41,7 @@ from repro_torch.core.plancache import merge_padded, sort_padded
 from repro_torch.kernels import merge
 from repro_torch.kernels.bitonic import block_sort
 from repro_torch.kernels.build import gather_windows, pk_windows
-from repro_torch.kernels.dbit import adjacent_dbits
+from repro_torch.kernels.dbit import adjacent_dbitmap, adjacent_dbits
 from repro_torch.kernels.lookup import leaf_stage, leaf_stage_many
 from repro_torch.kernels.pext import pext
 
@@ -49,10 +52,12 @@ __all__ = ["CudaBackend"]
 
 @register_backend("cuda")
 class CudaBackend(ExecutionBackend):
-    """pext extraction + bitonic block sort + merge-rank merge + pk-window
-    build + probe lookup + tenant-major probe lookup_many + dbit refresh."""
+    """pext extraction + bitonic block sort + merge-rank merge + dbit and
+    pk-window build + probe lookup + tenant-major probe lookup_many + dbit
+    refresh."""
 
-    dbit_fn = staticmethod(adjacent_dbits)
+    dbitmap_fn = staticmethod(adjacent_dbitmap)
+    dpos_fn = staticmethod(adjacent_dbits)
 
     def extract(self, words, plan: ExtractionPlan):
         return pext(words, plan)
@@ -75,8 +80,8 @@ class CudaBackend(ExecutionBackend):
         from repro_torch.core.btree import build_btree
 
         return build_btree(comp_sorted, row_sorted, meta, words, lengths, config,
-                           rids=rids, slice_fn=pk_windows, gather_slice_fn=gather_windows,
-                           n_valid=n_valid)
+                           rids=rids, dpos_fn=self.dpos_fn, slice_fn=pk_windows,
+                           gather_slice_fn=gather_windows, n_valid=n_valid)
 
     def lookup(self, tree, queries):
         from repro_torch.core.btree import lookup_batch_planned

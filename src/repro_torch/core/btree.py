@@ -157,6 +157,7 @@ def build_btree(
     config: BTreeConfig = BTreeConfig(),
     rids: torch.Tensor | None = None,
     *,
+    dpos_fn=None,
     slice_fn=None,
     gather_slice_fn=None,
     n_valid: int | None = None,
@@ -170,15 +171,20 @@ def build_btree(
     keys mapped through D-offset — no full-key comparisons anywhere in the
     build, which is the point of the paper.
 
-    Two hooks substitute the partial-key windows (the CUDA backend passes
-    its pk-window kernel's two forms) and must be bit-identical to their
-    defaults: ``gather_slice_fn(table, rows, starts, pk)`` returns the
-    leaf level's ``(table[rows], windows)`` (default ``_gather_slice``),
-    and ``slice_fn(words, starts, pk, rows)`` the windows of
-    ``words[rows]`` for an upper level (default ``_slice_rows``).
+    Three hooks substitute the adjacent D-bits and the partial-key windows
+    (the CUDA backend passes its dbit kernel's positions form and its
+    pk-window kernel's two forms) and must be bit-identical to their
+    defaults: ``dpos_fn(sorted_comp)`` returns the (n-1,) D-bit positions
+    of adjacent sorted entries (default ``adjacent_dbit_positions``),
+    ``gather_slice_fn(table, rows, starts, pk)`` the leaf level's
+    ``(table[rows], windows)`` (default ``_gather_slice``), and
+    ``slice_fn(words, starts, pk, rows)`` the windows of ``words[rows]``
+    for an upper level (default ``_slice_rows``).
     ``n_valid`` marks ``comp_sorted``/``row_sorted`` as bucket-shaped with
     ``n_valid`` real rows; only those are read.
     """
+    if dpos_fn is None:
+        dpos_fn = adjacent_dbit_positions
     if slice_fn is None:
         slice_fn = _slice_rows
     if gather_slice_fn is None:
@@ -196,7 +202,7 @@ def build_btree(
     # ---------------- leaf level: dpos, then the gather and windows ----------------
     rowc = row_sorted[:n].clamp(0, max(n - 1, 0))
     # distinction bit position per sorted entry (entry 0 -> position 0)
-    dpos_comp = adjacent_dbit_positions(comp)
+    dpos_comp = dpos_fn(comp)
     tail = torch.where(
         dpos_comp == NO_DBIT, torch.zeros_like(dpos_comp), d_off[dpos_comp.clamp(0, n_off - 1)]
     )

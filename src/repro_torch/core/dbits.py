@@ -266,13 +266,19 @@ def dbit_positions_nonempty(bitmap: np.ndarray) -> np.ndarray:
     return pos
 
 
-def compute_dbitmap(words: torch.Tensor, *, presorted: bool = False) -> torch.Tensor:
+def compute_dbitmap(words: torch.Tensor, *, presorted: bool = False,
+                    dbitmap_fn=None) -> torch.Tensor:
     """D-bitmap of a key set: sort, then adjacent-pair distinction bits.
 
     By Theorem 1 this bitmap covers the distinction bit positions of *every*
     key pair.  Returns a (W,) int64-carrier tensor on the keys' device.
+    ``dbitmap_fn(sorted_words) -> (W,)`` is the adjacent-pair pass over the
+    sorted keys (default: the positions, then their bits, with plain
+    tensor ops; the CUDA backend passes its dbit kernel's bitmap form).
     """
     w = words if presorted else sort_words(words)[0]
+    if dbitmap_fn is not None:
+        return dbitmap_fn(w)
     return positions_to_bitmap(adjacent_dbit_positions(w), int(words.shape[1]))
 
 

@@ -15,9 +15,10 @@ their correctness arguments are implemented exactly:
 
 The *update rules* (``meta_on_insert`` etc.) are host-side scalar work
 (numpy) — they sit on the DB transaction path.  The *rebuild-time refresh*
-computes the adjacent D-bit positions on the device (the backends'
-``refresh_meta`` op feeds them in via ``dpos_comp``), and only the final
-scatter-OR into the bitmap words happens here on the host.
+reduces the adjacent D-bits of the sorted compressed run to a bitmap in
+the compressed bit space on the device (the backends' ``refresh_meta`` op
+feeds its words in via ``dbitmap_comp``); here on the host only its set
+bits, at most 32 per word, are mapped through D-offset.
 """
 
 from __future__ import annotations
@@ -102,11 +103,14 @@ class DSMeta:
         )
 
 
-def meta_from_keys(words: np.ndarray, device=None) -> DSMeta:
+def meta_from_keys(words: np.ndarray, device=None, dbitmap_fn=None) -> DSMeta:
     """Initial DS-metadata from full index keys (first-time build, §4.3).
 
     The sort behind the D-bitmap runs on ``device`` (CUDA unless the
     caller names another); the result is host-side numpy.
+    ``dbitmap_fn(sorted_words) -> (W,)`` is the adjacent-pair bitmap pass
+    over the sorted keys (a backend's ``dbitmap_fn``; default: the plain
+    pass of ``compute_dbitmap``).
     """
     from .dbits import compute_dbitmap, compute_variant_bitmap
     from .u32 import resolve_device, to_carrier, to_u32
@@ -114,7 +118,7 @@ def meta_from_keys(words: np.ndarray, device=None) -> DSMeta:
     w = to_carrier(np.asarray(words, np.uint32), resolve_device(device))
     var, ref = compute_variant_bitmap(w)
     return DSMeta(
-        dbitmap=to_u32(compute_dbitmap(w)),
+        dbitmap=to_u32(compute_dbitmap(w, dbitmap_fn=dbitmap_fn)),
         varbitmap=to_u32(var),
         refkey=to_u32(ref),
         n_words=int(w.shape[1]),
@@ -149,6 +153,8 @@ def meta_on_rebuild(
     old_meta: DSMeta,
     ref_full_key: np.ndarray,
     dpos_comp: np.ndarray | None = None,
+    *,
+    dbitmap_comp: np.ndarray | None = None,
 ) -> DSMeta:
     """Recompute DS-metadata during index reconstruction (§4.3).
 
@@ -161,14 +167,19 @@ def meta_on_rebuild(
     The bit set is one occupancy count over the bit positions packed into
     the 32-bit bitmap words (duplicate-safe and linear in the number of
     adjacencies), not a per-position Python loop.  ``dpos_comp``
-    optionally carries precomputed adjacent D-bit positions — the
-    backends' refresh op (``repro_torch.core.plancache.adjacent_dpos_padded``)
-    passes them so the device half of the refresh runs beside the sorted
-    run.
+    optionally carries precomputed adjacent D-bit positions;
+    ``dbitmap_comp`` carries their OR instead, (Wc,) bitmap words in the
+    compressed bit space — what the backends' refresh op
+    (``repro_torch.core.plancache.adjacent_dbitmap_padded``) passes, so
+    that only those words cross from the device.  D-offset is a function
+    of the position alone, so mapping the bitmap's set bits gives the
+    same bitmap as mapping every position.
     """
-    from .dbits import NO_DBIT
+    from .dbits import NO_DBIT, bitmap_to_positions
 
-    if dpos_comp is None:
+    if dbitmap_comp is not None:
+        dpos_comp = bitmap_to_positions(dbitmap_comp)
+    elif dpos_comp is None:
         from .dbits import adjacent_dbit_positions
         from .u32 import to_carrier
 

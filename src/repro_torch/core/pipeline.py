@@ -327,7 +327,7 @@ class ReconstructionPipeline:
             meta = identity_meta(keyset)
         elif meta is None:
             t0 = time.perf_counter()
-            meta = meta_from_keys(keyset.words, dev)
+            meta = meta_from_keys(keyset.words, dev, dbitmap_fn=self.backend.dbitmap_fn)
             t_meta = time.perf_counter() - t0
         plan = meta.plan()
 

@@ -34,7 +34,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from .u32 import MASK32, to_carrier
+from .u32 import MASK32, to_carrier, to_u32
 
 __all__ = [
     "BUCKET_MIN",
@@ -51,6 +51,7 @@ __all__ = [
     "sort_padded",
     "merge_padded",
     "adjacent_dpos_padded",
+    "adjacent_dbitmap_padded",
     "ChunkPlan",
     "tune_chunking",
 ]
@@ -223,28 +224,43 @@ def merge_padded(
     return km[: na + nb], rm[: na + nb]
 
 
-def adjacent_dpos_padded(
+def adjacent_dpos_padded(comp_sorted: torch.Tensor, *, n_valid: int | None = None) -> np.ndarray:
+    """Adjacent distinction-bit positions of a sorted run: (n-1,) int32 on
+    the host with ``NO_DBIT`` at equal-key adjacencies, the reference's
+    refresh pass; only the first ``n_valid`` lanes of a bucket-shaped run
+    are read.  The refresh itself takes :func:`adjacent_dbitmap_padded`,
+    whose W words are all that cross to the host.
+    """
+    from .dbits import adjacent_dbit_positions
+
+    n = int(comp_sorted.shape[0]) if n_valid is None else int(n_valid)
+    if n < 2:
+        return np.zeros((0,), np.int32)
+    return adjacent_dbit_positions(comp_sorted[:n]).to(torch.int32).cpu().numpy()
+
+
+def adjacent_dbitmap_padded(
     comp_sorted: torch.Tensor,
     *,
     n_valid: int | None = None,
     impl: Callable | None = None,
 ) -> np.ndarray:
-    """Adjacent distinction-bit positions of a sorted run: (n-1,) int32 on
-    the host with ``NO_DBIT`` at equal-key adjacencies.
+    """The OR of a sorted run's adjacent distinction bits: (W,) uint32
+    bitmap words on the host, in the run's own bit space (equal-key
+    adjacencies set nothing).
 
-    The refresh stage's device half; only the first ``n_valid`` lanes of
-    a bucket-shaped run are read.  ``impl(sorted_keys) -> (n-1,)`` is the
-    backend's pass (default: the plain ``adjacent_dbit_positions``; the
-    CUDA backend passes its dbit kernel).  The host half (the scatter-OR
-    into the bitmap words) is ``repro_torch.core.metadata.meta_on_rebuild``.
+    The refresh stage's device half in bitmap form: only the first
+    ``n_valid`` lanes of a bucket-shaped run are read, and only the W
+    words cross to the host.  ``impl(sorted_keys) -> (W,)`` is the
+    backend's pass (default: the plain pass of ``compute_dbitmap``; the
+    CUDA backend passes its dbit kernel's bitmap form).  The host half
+    (each set bit mapped through D-offset) is
+    ``repro_torch.core.metadata.meta_on_rebuild``.
     """
-    if impl is None:
-        from .dbits import adjacent_dbit_positions as impl
+    from .dbits import compute_dbitmap
 
     n = int(comp_sorted.shape[0]) if n_valid is None else int(n_valid)
-    if n < 2:
-        return np.zeros((0,), np.int32)
-    return impl(comp_sorted[:n]).to(torch.int32).cpu().numpy()
+    return to_u32(compute_dbitmap(comp_sorted[:n], presorted=True, dbitmap_fn=impl))
 
 
 # ---------------------------------------------------------------------------

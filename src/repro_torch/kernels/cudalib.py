@@ -9,7 +9,9 @@ root, and loaded with ``ctypes``.  A library whose hash matches is reused.
 
 ``LAUNCHES`` counts the kernel launches of each wrapper: a wrapper adds
 one exactly where it launches its kernel (never on its plain-PyTorch CPU
-path), so a run can show which kernels its path went through.
+path), so a run can show which kernels its path went through.  A kernel
+with more than one form also counts each form's launches in
+``LAUNCHES_BY_FORM``.
 
 Kernels launch from more than one thread (the multi-tenant engine's
 dispatcher beside a writer's rebuild), so the first build and load of the
@@ -29,7 +31,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["LAUNCHES", "reset_launches", "build", "lib", "launch", "check_tensor"]
+__all__ = ["LAUNCHES", "LAUNCHES_BY_FORM", "reset_launches", "build", "lib", "launch",
+           "check_tensor"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -49,12 +52,15 @@ _SIGNATURES = {
     "repro_probe": (_P, _P, _P, _P, _P, _I, _L, _I, _I, _L, _I, _P),
     "repro_probe_leaf": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _L, _L, _I, _P),
     "repro_merge_rank": (_P, _P, _P, _P, _P, _L, _L, _I, _P),
-    "repro_dbit": (_P, _P, _L, _I, _P),
+    "repro_dbit": (_P, _P, _L, _I, _I, _P),
+    "repro_dbitmap": (_P, _P, _L, _I, _I, _P),
 }
 
 #: launches per kernel wrapper since the last :func:`reset_launches`
 LAUNCHES = {"pext": 0, "bitonic_block_sort": 0, "pk_window": 0, "probe": 0,
             "merge_rank": 0, "dbit": 0, "probe_many": 0}
+#: launches per form of the kernels that have more than one
+LAUNCHES_BY_FORM = {"dbit": {"positions": 0, "bitmap": 0}}
 
 _lib: ctypes.CDLL | None = None
 _lib_lock = threading.Lock()
@@ -68,6 +74,9 @@ def reset_launches() -> None:
     with _count_lock:
         for name in LAUNCHES:
             LAUNCHES[name] = 0
+        for forms in LAUNCHES_BY_FORM.values():
+            for form in forms:
+                forms[form] = 0
 
 
 def _nvcc() -> str:
@@ -152,10 +161,11 @@ def check_tensor(name: str, t: torch.Tensor, device: torch.device, dtype,
         raise ValueError(f"{name} must be contiguous")
 
 
-def launch(kernel: str, entry: str, device: torch.device, *args) -> None:
+def launch(kernel: str, entry: str, device: torch.device, *args,
+           form: str | None = None) -> None:
     """Call C entry ``entry`` on ``device``'s current stream with ``args``
     (tensors pass their data pointer), raise on a CUDA error, and count
-    one launch of ``kernel``."""
+    one launch of ``kernel`` (and of its ``form``, if it has forms)."""
     c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
@@ -164,3 +174,5 @@ def launch(kernel: str, entry: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"{kernel} kernel launch failed with CUDA error {err}")
     with _count_lock:
         LAUNCHES[kernel] += 1
+        if form is not None:
+            LAUNCHES_BY_FORM[kernel][form] += 1

@@ -1,1 +1,7 @@
-from .ops import adjacent_dbits, adjacent_dbits_plain  # noqa: F401
+from .ops import (  # noqa: F401
+    PROBE_WORDS,
+    adjacent_dbitmap,
+    adjacent_dbitmap_plain,
+    adjacent_dbits,
+    adjacent_dbits_plain,
+)

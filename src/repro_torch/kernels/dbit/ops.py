@@ -1,23 +1,36 @@
-"""Adjacent distinction bits — the CUDA kernel's wrapper and its
-plain-PyTorch version.
+"""Adjacent distinction bits — the CUDA kernel's two forms, their wrappers
+and their plain-PyTorch versions.
 
 The kernel (``csrc/dbit.cu``) replaces the TPU kernel
 ``repro/kernels/dbit/kernel.py::_dbit_kernel`` / ``dbit_planes``: for
 each adjacent pair of a sorted run, the position of the first differing
 bit, ``32*w + clz(prev ^ cur)`` at the first word ``w`` that differs, or
-``NO_DBIT`` for an equal pair.  One thread per pair reads both rows in
-place, so no shifted copies of the run are made.  It is bound by bytes:
-one read of each row and one int32 written per pair.
+``NO_DBIT`` for an equal pair.  Two forms of one template:
+
+* :func:`adjacent_dbits`, the positions, (n-1,) int32: the bulk build's
+  leaf dpos (``build_btree``'s ``dpos_fn``);
+* :func:`adjacent_dbitmap`, the OR of every pair's bit, (W,) bitmap words
+  in the run's own bit space, reduced on the card: the refresh's D-bitmap
+  and ``meta_from_keys``'s, where only these W words cross to the host.
+
+Both read the run in place, a lane group a row and a 16-byte chunk a
+lane, and compare a row's later words only where its first ones equal
+its predecessor's.  Both are bound by bytes.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.dbits import adjacent_dbit_positions
+from repro_torch.core.dbits import adjacent_dbit_positions, positions_to_bitmap
 from repro_torch.kernels import cudalib
 
-__all__ = ["adjacent_dbits", "adjacent_dbits_plain"]
+__all__ = ["PROBE_WORDS", "adjacent_dbits", "adjacent_dbits_plain",
+           "adjacent_dbitmap", "adjacent_dbitmap_plain"]
+
+#: words of each row the kernel compares first (one 32-byte sector of
+#: int64 carriers); later words are read only where these are equal
+PROBE_WORDS = 4
 
 
 def adjacent_dbits_plain(sorted_words: torch.Tensor) -> torch.Tensor:
@@ -25,21 +38,55 @@ def adjacent_dbits_plain(sorted_words: torch.Tensor) -> torch.Tensor:
     return adjacent_dbit_positions(sorted_words).to(torch.int32)
 
 
-def adjacent_dbits(sorted_words: torch.Tensor) -> torch.Tensor:
+def adjacent_dbitmap_plain(sorted_words: torch.Tensor) -> torch.Tensor:
+    """(n, W) sorted keys -> (W,) int64-carrier bitmap of the adjacent
+    D-bits with plain tensor ops."""
+    return positions_to_bitmap(adjacent_dbit_positions(sorted_words),
+                               int(sorted_words.shape[1]))
+
+
+def _launch(form: str, entry: str, sorted_words: torch.Tensor, out: torch.Tensor,
+            probe_words: int) -> torch.Tensor:
+    n, w = sorted_words.shape
+    if n >= 2:
+        cudalib.launch("dbit", entry, sorted_words.device, sorted_words, out, n, w,
+                       probe_words, form=form)
+    return out
+
+
+def adjacent_dbits(sorted_words: torch.Tensor, *,
+                   probe_words: int = PROBE_WORDS) -> torch.Tensor:
     """(n, W) int64-carrier sorted keys -> (n-1,) int32 adjacent D-bit
     positions (``NO_DBIT`` where a key equals its predecessor).
 
     A CPU tensor takes :func:`adjacent_dbits_plain`; a CUDA tensor
-    launches the kernel (or raises).  ``n < 2`` gives an empty vector.
+    launches the kernel's positions form (or raises).  ``probe_words`` is
+    how many leading words of a row the kernel compares before it reads
+    the rest.  ``n < 2`` gives an empty vector and launches nothing.
     """
     if sorted_words.device.type == "cpu":
         return adjacent_dbits_plain(sorted_words)
     dev = sorted_words.device
     cudalib.check_tensor("sorted_words", sorted_words, dev, torch.int64, 2)
+    out = torch.empty((max(int(sorted_words.shape[0]) - 1, 0),), dtype=torch.int32,
+                      device=dev)
+    return _launch("positions", "repro_dbit", sorted_words, out, probe_words)
+
+
+def adjacent_dbitmap(sorted_words: torch.Tensor, *,
+                     probe_words: int = PROBE_WORDS) -> torch.Tensor:
+    """(n, W) int64-carrier sorted keys -> (W,) int64-carrier bitmap with
+    the bit of every adjacent pair's D-bit set (MSB first; equal pairs set
+    nothing).
+
+    A CPU tensor takes :func:`adjacent_dbitmap_plain`; a CUDA tensor
+    launches the kernel's bitmap form (or raises).  ``n < 2`` gives zeros
+    and launches nothing.
+    """
+    if sorted_words.device.type == "cpu":
+        return adjacent_dbitmap_plain(sorted_words)
+    dev = sorted_words.device
+    cudalib.check_tensor("sorted_words", sorted_words, dev, torch.int64, 2)
     n, w = sorted_words.shape
-    m = max(n - 1, 0)
-    out = torch.empty((m,), dtype=torch.int32, device=dev)
-    if m == 0:
-        return out
-    cudalib.launch("dbit", "repro_dbit", dev, sorted_words, out, m, w)
-    return out
+    out = (torch.empty if n >= 2 else torch.zeros)((w,), dtype=torch.int64, device=dev)
+    return _launch("bitmap", "repro_dbitmap", sorted_words, out, probe_words)

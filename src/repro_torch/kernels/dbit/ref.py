@@ -1,4 +1,4 @@
-"""Scalar numpy oracle of the dbit kernel: one pair at a time."""
+"""Scalar numpy oracles of the dbit kernel's two forms: one pair at a time."""
 
 from __future__ import annotations
 
@@ -16,4 +16,15 @@ def adjacent_dbits_ref(sorted_words: np.ndarray) -> np.ndarray:
             if x:
                 out[i] = 32 * j + 32 - int(x).bit_length()
                 break
+    return out
+
+
+def adjacent_dbitmap_ref(sorted_words: np.ndarray) -> np.ndarray:
+    """(n, W) uint32 sorted keys -> (W,) uint32 bitmap: bit ``31 - p % 32``
+    of word ``p // 32`` set for every adjacent pair's D-bit ``p``."""
+    w = np.asarray(sorted_words, np.uint32)
+    out = np.zeros(w.shape[1], np.uint32)
+    for p in adjacent_dbits_ref(w).tolist():
+        if p != NO_DBIT:
+            out[p // 32] |= np.uint32(1 << (31 - p % 32))
     return out

@@ -29,7 +29,8 @@ from repro_torch.kernels import cudalib  # noqa: E402
 from repro_torch.kernels.bitonic import block_sort, block_sort_plain  # noqa: E402
 from repro_torch.kernels.build import (  # noqa: E402
     gather_windows, gather_windows_plain, pk_windows, pk_windows_plain)
-from repro_torch.kernels.dbit import adjacent_dbits, adjacent_dbits_plain  # noqa: E402
+from repro_torch.kernels.dbit import (  # noqa: E402
+    adjacent_dbitmap, adjacent_dbitmap_plain, adjacent_dbits, adjacent_dbits_plain)
 from repro_torch.core import btree  # noqa: E402
 from repro_torch.core.btree import _as_stack  # noqa: E402
 from repro_torch.kernels.lookup import (  # noqa: E402
@@ -207,6 +208,9 @@ def test_cuda_backend_matches_torch_backend_on_the_card(dev, leaf_key_gathers):
     # chunk threshold)
     on_path = ("pext", "bitonic_block_sort", "pk_window", "probe", "dbit")
     assert all(cudalib.LAUNCHES[name] > 0 for name in on_path), cudalib.LAUNCHES
+    # the build's dpos in the positions form; meta_from_keys and the
+    # refresh in the bitmap form
+    assert cudalib.LAUNCHES_BY_FORM["dbit"] == {"positions": 1, "bitmap": 2}
     assert leaf_key_gathers == []  # the leaf stage ran in the kernel
     assert cudalib.LAUNCHES["merge_rank"] == 0
     want = ReconstructionPipeline(backend="torch", device=dev).run(ks)
@@ -301,6 +305,52 @@ def test_dbit_kernel_matches_plain(dev, n, w):
         assert int(got[2]) == 32 * w - 1
 
 
+def _dbit_runs(seed, n, w):
+    """Sorted runs of n rows of w words, as carriers on the host: masked
+    random keys with an equal pair, keys that differ only in the last word
+    (every other pair equal, every fourth differing in its last bit), and
+    one key repeated."""
+    keys = torch.sort(to_carrier(_keys(seed, n, w, 0x0000FF0F), "cpu"), dim=0).values
+    keys = sort_words_keyed(keys, torch.arange(n))[0]
+    keys[n // 2] = keys[n // 2 - 1]
+    last = torch.zeros((n, w), dtype=torch.int64)
+    last[:, -1] = torch.arange(n) // 2
+    same = to_carrier(np.broadcast_to(_keys(seed, 1, w), (n, w)), "cpu")
+    return {"masked": keys, "last_word": last, "all_equal": same}
+
+
+#: run lengths around the tile edges: a block takes 256 pairs (fewer where a
+#: group of lanes holds a row)
+_DBIT_ROWS = [2, 3, 255, 256, 257, 258, 511, 512, 513, 1025, 3 * 1024 - 1, 4097]
+
+
+@pytest.mark.parametrize("w", [1, 2, 3, 4, 16, 17, 33, 128])
+def test_dbit_kernel_forms_match_plain_across_tile_edges(dev, w):
+    """Both forms against their plain versions on runs of 2^k +- 1 rows
+    across the tile edges; the default probe (one sector: a lane a row),
+    two sectors (two lanes a row) and the whole row; a run that starts off
+    16 bytes (8-byte loads)."""
+    for n in _DBIT_ROWS:
+        for kind, keys in _dbit_runs(n, n, w).items():
+            flat = torch.cat([torch.zeros(1, dtype=torch.int64), keys.reshape(-1)]).to(dev)
+            for run in (keys.to(dev), flat[1:].view(n, w)):
+                want_pos, want_bits = adjacent_dbits_plain(run), adjacent_dbitmap_plain(run)
+                for probe_words in (4, 8, w):
+                    before = dict(cudalib.LAUNCHES_BY_FORM["dbit"])
+                    got_pos = adjacent_dbits(run, probe_words=probe_words)
+                    got_bits = adjacent_dbitmap(run, probe_words=probe_words)
+                    what = f"n={n} W={w} {kind} probe={probe_words}"
+                    assert torch.equal(got_pos, want_pos), what
+                    assert torch.equal(got_bits, want_bits), what
+                    assert cudalib.LAUNCHES_BY_FORM["dbit"] == {
+                        form: count + 1 for form, count in before.items()}
+    before = cudalib.LAUNCHES["dbit"]
+    one = torch.zeros((1, w), dtype=torch.int64, device=dev)
+    assert adjacent_dbits(one).shape == (0,)
+    assert torch.equal(adjacent_dbitmap(one), torch.zeros(w, dtype=torch.int64, device=dev))
+    assert cudalib.LAUNCHES["dbit"] == before
+
+
 def test_chunked_run_on_the_card_equals_unchunked(dev):
     buf = np.random.default_rng(5).integers(97, 123, size=(10000, 32), dtype=np.uint8)
     ks = rows_to_keyset(buf)
@@ -308,7 +358,9 @@ def test_chunked_run_on_the_card_equals_unchunked(dev):
     chunked = ReconstructionPipeline(backend="cuda", device=dev, chunk_threshold=4096,
                                      chunk_size=1024).run(ks)
     assert cudalib.LAUNCHES["merge_rank"] == chunked.stats["cascade_merges"] == 9
-    assert cudalib.LAUNCHES["dbit"] == 1
+    # meta_from_keys and the refresh (bitmap form), the build (positions)
+    assert cudalib.LAUNCHES["dbit"] == 3
+    assert cudalib.LAUNCHES_BY_FORM["dbit"] == {"positions": 1, "bitmap": 2}
     mono = ReconstructionPipeline(backend="cuda", device=dev).run(ks)
     for name in ("comp_sorted", "row_sorted", "rid_sorted"):
         assert torch.equal(getattr(chunked, name), getattr(mono, name)), name

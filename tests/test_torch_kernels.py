@@ -33,6 +33,7 @@ from repro_torch.kernels.bitonic.ref import block_sort_ref  # noqa: E402
 from repro_torch.kernels.build import (  # noqa: E402
     gather_windows, gather_windows_plain, pk_windows, pk_windows_plain)
 from repro_torch.kernels.build.ref import pk_windows_ref  # noqa: E402
+from repro_torch.kernels.dbit import adjacent_dbits  # noqa: E402
 from repro_torch.kernels.lookup import probe, probe_plain  # noqa: E402
 from repro_torch.kernels.lookup.ref import probe_ref  # noqa: E402
 from repro_torch.kernels.pext import pext, pext_plain  # noqa: E402
@@ -275,7 +276,12 @@ def test_build_btree_with_kernel_hooks_matches_reference(n, w, mask):
     r_comp, r_rows = RD.sort_words_keyed(jnp.asarray(comp), jnp.asarray(rows))
     want = RB.build_btree(r_comp, r_rows, r_meta, jnp.asarray(words), jnp.asarray(lengths),
                           rids=jnp.asarray(rids))
-    calls = {"gather": 0, "slice": 0}
+    calls = {"dpos": 0, "gather": 0, "slice": 0}
+
+    def dpos_fn(comp_):
+        calls["dpos"] += 1
+        assert comp_.shape == (n, r_comp.shape[1])
+        return adjacent_dbits(comp_)
 
     def gather_fn(table, rows_, starts, pk):
         calls["gather"] += 1
@@ -288,8 +294,9 @@ def test_build_btree_with_kernel_hooks_matches_reference(n, w, mask):
 
     got = TB.build_btree(_t(r_comp), torch.as_tensor(np.asarray(r_rows, np.int64)), t_meta,
                          _t(words), torch.as_tensor(lengths), rids=_t(rids),
-                         slice_fn=slice_fn, gather_slice_fn=gather_fn)
-    assert calls == {"gather": 1, "slice": len(want.levels)} and len(want.levels) >= 1
+                         dpos_fn=dpos_fn, slice_fn=slice_fn, gather_slice_fn=gather_fn)
+    assert calls == {"dpos": 1, "gather": 1, "slice": len(want.levels)}
+    assert len(want.levels) >= 1
     for name in ("pk", "dpos", "klen", "rid", "valid"):
         np.testing.assert_array_equal(np.asarray(got.leaf[name]).astype(np.asarray(
             want.leaf[name]).dtype), np.asarray(want.leaf[name]), err_msg=name)
