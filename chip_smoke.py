@@ -78,8 +78,8 @@ device or any phase fails:
    their lookups run, beside the plain leaf stage and the unfused stage
    (the mask form, then the PyTorch gather, compare and select); dbit in
    its positions form at the build's run, its bitmap form at the
-   refresh's and at meta_from_keys' sorted full keys (beside the same
-   form reading whole rows), with its launches by form.
+   refresh's and at meta_from_keys' sorted full keys, with its launches
+   by form.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -124,7 +124,7 @@ from repro_torch.kernels.bitonic import DEFAULT_BLOCK, block_sort, block_sort_pl
 from repro_torch.kernels.build import (  # noqa: E402
     gather_windows, gather_windows_plain, pk_windows, pk_windows_plain)
 from repro_torch.kernels.dbit import (  # noqa: E402
-    PROBE_WORDS, adjacent_dbitmap, adjacent_dbitmap_plain, adjacent_dbits, adjacent_dbits_plain)
+    SECTOR_WORDS, adjacent_dbitmap, adjacent_dbitmap_plain, adjacent_dbits, adjacent_dbits_plain)
 from repro_torch.kernels.lookup import (  # noqa: E402
     leaf_stage, leaf_stage_many, leaf_stage_many_plain, probe, probe_many,
     probe_many_plain, probe_plain)
@@ -739,7 +739,7 @@ def dbit_counts(keys: torch.Tensor) -> dict:
     compares its words up to the first that differs (all of them if the
     keys are equal), so a row is read up to the further of its two pairs'
     first differences; ``past_first_sector`` counts the pairs that differ
-    only after the kernel's first probe."""
+    only after the first sector, where the kernel walks on."""
     n, w = (int(x) for x in keys.shape)
     pos = adjacent_dbits_plain(keys).to(torch.int64)
     upto = torch.where(pos == NO_DBIT, w, pos // 32 + 1)
@@ -748,7 +748,7 @@ def dbit_counts(keys: torch.Tensor) -> dict:
     need[1:] = torch.maximum(need[1:], upto)
     return {"rows": n, "key_words": w, "words_compared": int(upto.sum()),
             "words_read": int(need.sum()),
-            "past_first_sector": int((upto > PROBE_WORDS).sum())}
+            "past_first_sector": int((upto > SECTOR_WORDS).sum())}
 
 
 def dbit_cost(counts: dict, form: str) -> tuple[int, int]:
@@ -1360,8 +1360,7 @@ def main(argv=None) -> int:
         entry["leaf_stage"]["over_plain_stage"] = \
             entry["leaf_stage"]["ms"] / entry["leaf_stage"]["plain_stage_ms"]
     # dbit's bitmap form at the refresh's run and at meta_from_keys' sorted
-    # full keys (there also reading whole rows, as the probe width of the
-    # full key), beside the u32 bound of all words and the floor of every
+    # full keys, beside the u32 bound of all words and the floor of every
     # sector at the int64 carrier's width
     dbit_entry = next(e for e in report if e["name"] == "dbit")
     dbit_entry.update(
@@ -1378,8 +1377,7 @@ def main(argv=None) -> int:
         "shape": full_counts,
         **measure(lambda: adjacent_dbitmap(full_run), lambda: adjacent_dbitmap_plain(full_run),
                   *dbit_cost(full_counts, "bitmap"), "dbit (full-key bitmap form)"),
-        **dbit_floors(full_counts, "bitmap"),
-        "whole_row_ms": cuda_ms(lambda: adjacent_dbitmap(full_run, probe_words=w), args.reps)}
+        **dbit_floors(full_counts, "bitmap")}
     del comp, comp_m, rows_m, words_dev, rowc
     print(json.dumps({"kernels": report}), flush=True)
     print(f"[wall] the whole script took {time.perf_counter() - t_script:.1f} s", flush=True)

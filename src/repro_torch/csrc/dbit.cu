@@ -8,9 +8,9 @@
 // 32*w + clz(prev ^ cur) at the first word w that differs, NO_DBIT
 // (2^31 - 1) for an equal pair.  One template, two forms:
 //
-// * positions (dbit_kernel<VEC, false>): writes each pair's D-bit, (n-1,)
+// * positions (dbit_kernel<false>): writes each pair's D-bit, (n-1,)
 //   int32; the bulk build's leaf dpos;
-// * bitmap (dbit_kernel<VEC, true>): writes nothing per pair.  The lane
+// * bitmap (dbit_kernel<true>): writes nothing per pair.  The lane
 //   that finds a pair's D-bit p sets bit 31 - p % 32 of word p / 32 of the
 //   block's (W,) bitmap in shared memory (an atomicOr only where the bit is
 //   not set yet: a sorted set has few distinct D-bits), and each block ORs
@@ -19,23 +19,19 @@
 //   space): W words leave the card, not n - 1 positions.
 //
 // Layout.  The run is row-major and read in place, with no shifted copy.
-// A group of G lanes holds a row's first 4 * G words, 4 a lane (one 32-byte
-// sector of int64 carriers, in 16-byte loads where the width is even and
-// the run 16-byte aligned, else 8-byte ones), so a warp's loads read whole
-// sectors of 32 / G consecutive rows.  G covers the probe width the wrapper
-// gives; at the default of one sector a lane holds a row.  The previous
-// row's words come by shuffle from the group before, and the warp's first
-// row is compared with the halo row before it, which group 0 loads.  A
-// ballot over the group finds its first lane whose words differ and a
-// shuffle brings that lane's position, with no divergent loop.  A row
-// whose probed words equal its predecessor's walks on, 4 * G words a step,
-// reading both rows' next words until one differs or the key ends, so a
-// row's later sectors are read only when the earlier ones are equal
-// (adjacent keys of a sorted set mostly differ in the first).  Each warp
-// writes its 32 / G positions in one coalesced store.  (A warp of one row
-// step in 256-thread blocks measured at least as fast as warps of two to
-// four steps, groups of 16-byte lanes and 128- or 512-thread blocks at the
-// main path's shapes.)
+// A lane holds a row's first 4 words (one 32-byte sector of int64
+// carriers, in 8-byte loads), so a warp's loads read whole sectors of 32
+// consecutive rows.  The previous row's words come by shuffle from the lane
+// before, and the warp's first row is compared with the halo row before
+// it, which lane 0 loads.  A row whose first sector equals its
+// predecessor's walks on, a sector a step, reading both rows' next words
+// until one differs or the key ends, so a row's later sectors are read
+// only when the earlier ones are equal (adjacent keys of a sorted set
+// mostly differ in the first).  Lane j writes pair first + j, so a warp's
+// positions are one coalesced store.  (In development this measured at
+// least as fast as a group of lanes a row with a ballot for the first
+// differing word, 16-byte loads, warps of two to four row steps, and 128-
+// or 512-thread blocks at the main path's shapes.)
 //
 // Bound: bytes.  Each row is read once (the halo row once more per warp,
 // from L2), up to the sector that holds its pairs' first difference; the
@@ -50,116 +46,69 @@ namespace {
 constexpr int32_t kNoDbit = 0x7FFFFFFF;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kLaneWords = 4;  // words a lane holds of a row: one 32-byte sector
+constexpr int kSector = 4;  // words a lane reads of a row a step: one 32-byte sector
 constexpr unsigned kAll = 0xffffffffu;
 
-template <int VEC>
-struct Chunk;
-template <>
-struct Chunk<1> {
-  using type = long long;
-  __device__ static uint32_t word(type v, int) { return (uint32_t)v; }
-};
-template <>
-struct Chunk<2> {
-  using type = longlong2;
-  __device__ static uint32_t word(type v, int i) { return (uint32_t)(i ? v.y : v.x); }
-};
-
-// The lane's kLaneWords words of one row from word `word` on, in VEC-word
-// loads; zero where the row or the word does not exist (equal zeros
-// compare as equal).
-template <int VEC>
-__device__ __forceinline__ void load_words(uint32_t (&out)[kLaneWords],
-                                           const int64_t* __restrict__ keys,
-                                           int64_t row, int word, bool live,
-                                           int n_words) {
-  using T = typename Chunk<VEC>::type;
+// The kSector words of one row from word `word` on; zero where the row or
+// the word does not exist (equal zeros compare as equal).
+__device__ __forceinline__ void load_sector(uint32_t (&out)[kSector],
+                                            const int64_t* __restrict__ keys,
+                                            int64_t row, int word, bool live,
+                                            int n_words) {
 #pragma unroll
-  for (int c = 0; c < kLaneWords; c += VEC) {
-    T v{};
-    if (live && word + c < n_words)
-      v = *reinterpret_cast<const T*>(keys + row * n_words + word + c);
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) out[c + i] = Chunk<VEC>::word(v, i);
-  }
+  for (int i = 0; i < kSector; ++i)
+    out[i] = live && word + i < n_words ? (uint32_t)keys[row * n_words + word + i] : 0u;
 }
 
-// The first differing bit among the lane's words (word index `word` is
-// the first of them), or kNoDbit.
-__device__ __forceinline__ int lane_dbit(const uint32_t (&cur)[kLaneWords],
-                                         const uint32_t (&prev)[kLaneWords], int word) {
+// The first differing bit of a sector (word index `word` is its first),
+// or kNoDbit.
+__device__ __forceinline__ int sector_dbit(const uint32_t (&cur)[kSector],
+                                           const uint32_t (&prev)[kSector], int word) {
   int pos = kNoDbit;
 #pragma unroll
-  for (int i = kLaneWords - 1; i >= 0; --i) {
+  for (int i = kSector - 1; i >= 0; --i) {
     const uint32_t x = cur[i] ^ prev[i];
     if (x != 0u) pos = 32 * (word + i) + __clz((int)x);
   }
   return pos;
 }
 
-// The group's D-bit: the position held by its first lane with a
-// difference.  Every lane of the warp must call it.
-__device__ __forceinline__ int group_dbit(int lane_pos, int group_base,
-                                          unsigned group_mask) {
-  const unsigned found =
-      (__ballot_sync(kAll, lane_pos != kNoDbit) >> group_base) & group_mask;
-  const int src = group_base + (found ? __ffs(found) - 1 : 0);
-  const int pos = __shfl_sync(kAll, lane_pos, src);
-  return found ? pos : kNoDbit;
-}
-
-template <int VEC, bool BITMAP>
+template <bool BITMAP>
 __global__ void __launch_bounds__(kThreads)
     dbit_kernel(const int64_t* __restrict__ keys, int32_t* __restrict__ pos_out,
-                unsigned long long* __restrict__ bitmap_out, int64_t n,
-                int n_words, int log_group) {
+                unsigned long long* __restrict__ bitmap_out, int64_t n, int n_words) {
   extern __shared__ uint32_t s_bits[];  // the bitmap form's block bitmap
   const int lane = threadIdx.x & 31;
-  const int group_size = 1 << log_group;
-  const int rows_per_warp = 32 >> log_group;
-  const int group = lane >> log_group;
-  const int group_base = group << log_group;
-  const unsigned group_mask = log_group == 5 ? kAll : (1u << group_size) - 1u;
-  const bool leader = (lane & (group_size - 1)) == 0;
-  const int probe = group_size * kLaneWords;  // words of a row the group holds
-  const int word0 = (lane & (group_size - 1)) * kLaneWords;
-  const bool in_key = word0 < n_words;
-  // the warp's pairs first .. first + R - 1: rows first + 1 .. first + R,
+  // the warp's pairs first .. first + 31: rows first + 1 .. first + 32,
   // each against the row before, and row first, the halo, before them
-  const int64_t first =
-      ((int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5)) * rows_per_warp;
-  const int64_t r = first + 1 + group;
+  const int64_t first = ((int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5)) * 32;
+  const int64_t r = first + 1 + lane;
   const bool pair = r < n;
 
   if (BITMAP) {
     for (int j = threadIdx.x; j < n_words; j += kThreads) s_bits[j] = 0u;
     __syncthreads();
   }
-  uint32_t cur[kLaneWords], halo[kLaneWords], prev[kLaneWords];
-  load_words<VEC>(cur, keys, r, word0, pair && in_key, n_words);
-  load_words<VEC>(halo, keys, first, word0, group == 0 && first < n && in_key, n_words);
-  // the previous row: the group before's, or the halo row for group 0
+  uint32_t cur[kSector], halo[kSector], prev[kSector];
+  load_sector(cur, keys, r, 0, pair, n_words);
+  load_sector(halo, keys, first, 0, lane == 0 && first < n, n_words);
+  // the previous row: the lane before's, or the halo row for lane 0
 #pragma unroll
-  for (int i = 0; i < kLaneWords; ++i) {
-    const uint32_t up = __shfl_up_sync(kAll, cur[i], group_size);
-    prev[i] = group == 0 ? halo[i] : up;
+  for (int i = 0; i < kSector; ++i) {
+    const uint32_t up = __shfl_up_sync(kAll, cur[i], 1);
+    prev[i] = lane == 0 ? halo[i] : up;
   }
-  int pos = group_dbit(lane_dbit(cur, prev, word0), group_base, group_mask);
-  // rows equal so far walk on; the loop is warp-uniform
-  bool open = pair && pos == kNoDbit && probe < n_words;
-  for (int base = probe; __any_sync(kAll, open); base += probe) {
-    const int w = base + word0;
-    uint32_t a[kLaneWords], b[kLaneWords];
-    load_words<VEC>(a, keys, r, w, open && w < n_words, n_words);
-    load_words<VEC>(b, keys, r - 1, w, open && w < n_words, n_words);
-    const int p = group_dbit(lane_dbit(a, b, w), group_base, group_mask);
-    if (open && p != kNoDbit) pos = p;
-    open = open && p == kNoDbit && base + probe < n_words;
+  int pos = sector_dbit(cur, prev, 0);
+  // rows equal so far walk on, both rows a sector a step
+  for (int w = kSector; pair && pos == kNoDbit && w < n_words; w += kSector) {
+    uint32_t a[kSector], b[kSector];
+    load_sector(a, keys, r, w, true, n_words);
+    load_sector(b, keys, r - 1, w, true, n_words);
+    pos = sector_dbit(a, b, w);
   }
 
   if (BITMAP) {
-    if (pair && leader && pos != kNoDbit) {
+    if (pair && pos != kNoDbit) {
       uint32_t* word = s_bits + (pos >> 5);
       const uint32_t bit = 0x80000000u >> (pos & 31);
       if (!(*word & bit)) atomicOr(word, bit);
@@ -169,41 +118,20 @@ __global__ void __launch_bounds__(kThreads)
       const unsigned long long bits = s_bits[j];
       if (bits & ~__ldcg(bitmap_out + j)) atomicOr(bitmap_out + j, bits);
     }
-  } else {
-    // one coalesced store: lane j writes pair first + j, group j's D-bit
-    const int p = __shfl_sync(kAll, pos, (lane << log_group) & 31);
-    if (lane < rows_per_warp && first + lane < n - 1) pos_out[first + lane] = p;
+  } else if (pair) {
+    pos_out[r - 1] = pos;
   }
 }
 
-// Lanes per row (log2): enough lanes of kLaneWords words to cover the
-// probe, at most a warp.
-int log_group_for(int n_words, int probe_words) {
-  const int words = n_words < probe_words ? n_words : probe_words;
-  const int chunks = (words + kLaneWords - 1) / kLaneWords;
-  int log_group = 0;
-  while ((1 << log_group) < chunks && log_group < 5) ++log_group;
-  return log_group;
-}
-
 template <bool BITMAP>
-int launch(const void* keys, void* out, int64_t n, int n_words, int probe_words,
-           cudaStream_t stream) {
-  const bool wide = n_words % 2 == 0 && ((uintptr_t)keys & 15) == 0;
-  const int log_group = log_group_for(n_words, probe_words < 1 ? 1 : probe_words);
-  const int64_t rows_per_warp = 32 >> log_group;
-  const int64_t warps = (n + rows_per_warp - 1) / rows_per_warp;
+int launch(const void* keys, void* out, int64_t n, int n_words, cudaStream_t stream) {
+  const int64_t warps = (n + 31) / 32;
   const int64_t blocks = (warps + kWarps - 1) / kWarps;
   const size_t smem = BITMAP ? (size_t)n_words * sizeof(uint32_t) : 0;
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  int32_t* pos_out = BITMAP ? nullptr : (int32_t*)out;
-  unsigned long long* bitmap_out = BITMAP ? (unsigned long long*)out : nullptr;
-  if (wide)
-    dbit_kernel<2, BITMAP><<<(unsigned)blocks, kThreads, smem, stream>>>(
-        (const int64_t*)keys, pos_out, bitmap_out, n, n_words, log_group);
-  else
-    dbit_kernel<1, BITMAP><<<(unsigned)blocks, kThreads, smem, stream>>>(
-        (const int64_t*)keys, pos_out, bitmap_out, n, n_words, log_group);
+  dbit_kernel<BITMAP><<<(unsigned)blocks, kThreads, smem, stream>>>(
+      (const int64_t*)keys, BITMAP ? nullptr : (int32_t*)out,
+      BITMAP ? (unsigned long long*)out : nullptr, n, n_words);
   return (int)cudaGetLastError();
 }
 
@@ -211,16 +139,16 @@ int launch(const void* keys, void* out, int64_t n, int n_words, int probe_words,
 
 // Positions form: n sorted rows of n_words int64 carriers -> (n-1,) int32.
 extern "C" int repro_dbit(const void* keys, void* out, int64_t n, int n_words,
-                          int probe_words, void* stream) {
-  return launch<false>(keys, out, n, n_words, probe_words, (cudaStream_t)stream);
+                          void* stream) {
+  return launch<false>(keys, out, n, n_words, (cudaStream_t)stream);
 }
 
 // Bitmap form: n sorted rows -> (n_words,) int64-carrier bitmap words,
 // zeroed here first.
 extern "C" int repro_dbitmap(const void* keys, void* out, int64_t n,
-                             int n_words, int probe_words, void* stream) {
+                             int n_words, void* stream) {
   const cudaError_t err = cudaMemsetAsync(out, 0, (size_t)n_words * sizeof(int64_t),
                                           (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
-  return launch<true>(keys, out, n, n_words, probe_words, (cudaStream_t)stream);
+  return launch<true>(keys, out, n, n_words, (cudaStream_t)stream);
 }

@@ -52,8 +52,8 @@ _SIGNATURES = {
     "repro_probe": (_P, _P, _P, _P, _P, _I, _L, _I, _I, _L, _I, _P),
     "repro_probe_leaf": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _L, _L, _I, _P),
     "repro_merge_rank": (_P, _P, _P, _P, _P, _L, _L, _I, _P),
-    "repro_dbit": (_P, _P, _L, _I, _I, _P),
-    "repro_dbitmap": (_P, _P, _L, _I, _I, _P),
+    "repro_dbit": (_P, _P, _L, _I, _P),
+    "repro_dbitmap": (_P, _P, _L, _I, _P),
 }
 
 #: launches per kernel wrapper since the last :func:`reset_launches`

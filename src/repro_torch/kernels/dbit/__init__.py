@@ -1,5 +1,5 @@
 from .ops import (  # noqa: F401
-    PROBE_WORDS,
+    SECTOR_WORDS,
     adjacent_dbitmap,
     adjacent_dbitmap_plain,
     adjacent_dbits,

@@ -319,31 +319,26 @@ def _dbit_runs(seed, n, w):
     return {"masked": keys, "last_word": last, "all_equal": same}
 
 
-#: run lengths around the tile edges: a block takes 256 pairs (fewer where a
-#: group of lanes holds a row)
+#: run lengths around the tile edges: a block takes 256 pairs
 _DBIT_ROWS = [2, 3, 255, 256, 257, 258, 511, 512, 513, 1025, 3 * 1024 - 1, 4097]
 
 
 @pytest.mark.parametrize("w", [1, 2, 3, 4, 16, 17, 33, 128])
 def test_dbit_kernel_forms_match_plain_across_tile_edges(dev, w):
     """Both forms against their plain versions on runs of 2^k +- 1 rows
-    across the tile edges; the default probe (one sector: a lane a row),
-    two sectors (two lanes a row) and the whole row; a run that starts off
-    16 bytes (8-byte loads)."""
+    across the tile edges, in place and in a run that starts off 16
+    bytes."""
     for n in _DBIT_ROWS:
         for kind, keys in _dbit_runs(n, n, w).items():
             flat = torch.cat([torch.zeros(1, dtype=torch.int64), keys.reshape(-1)]).to(dev)
             for run in (keys.to(dev), flat[1:].view(n, w)):
-                want_pos, want_bits = adjacent_dbits_plain(run), adjacent_dbitmap_plain(run)
-                for probe_words in (4, 8, w):
-                    before = dict(cudalib.LAUNCHES_BY_FORM["dbit"])
-                    got_pos = adjacent_dbits(run, probe_words=probe_words)
-                    got_bits = adjacent_dbitmap(run, probe_words=probe_words)
-                    what = f"n={n} W={w} {kind} probe={probe_words}"
-                    assert torch.equal(got_pos, want_pos), what
-                    assert torch.equal(got_bits, want_bits), what
-                    assert cudalib.LAUNCHES_BY_FORM["dbit"] == {
-                        form: count + 1 for form, count in before.items()}
+                before = dict(cudalib.LAUNCHES_BY_FORM["dbit"])
+                got_pos, got_bits = adjacent_dbits(run), adjacent_dbitmap(run)
+                what = f"n={n} W={w} {kind}"
+                assert torch.equal(got_pos, adjacent_dbits_plain(run)), what
+                assert torch.equal(got_bits, adjacent_dbitmap_plain(run)), what
+                assert cudalib.LAUNCHES_BY_FORM["dbit"] == {
+                    form: count + 1 for form, count in before.items()}
     before = cudalib.LAUNCHES["dbit"]
     one = torch.zeros((1, w), dtype=torch.int64, device=dev)
     assert adjacent_dbits(one).shape == (0,)

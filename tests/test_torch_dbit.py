@@ -8,9 +8,9 @@ the refresh's host half from bitmap words against the reference's
 ``meta_on_rebuild``; the ``"cuda"`` backend's ``run`` and
 ``run_incremental`` on ``device="cpu"`` (every kernel wrapper takes its
 plain version) against the reference pipeline, with the passes counted.
-A numpy model of the kernel's lanes (row groups, the ballot that finds
-the first differing word, the shuffles and the halo row at warp and tile
-edges, the walk over later sectors) is held against the reference too.
+A numpy model of the kernel's lanes (the shuffle and the halo row at
+warp and tile edges, the walk over later sectors) is held against the
+reference too.
 ``tests/test_torch_cuda.py`` holds the kernel against the plain versions
 on a GPU.
 """
@@ -41,7 +41,7 @@ from repro_torch.core.metadata import DSMeta  # noqa: E402
 from repro_torch.core.pipeline import ReconstructionPipeline  # noqa: E402
 from repro_torch.core.u32 import to_carrier, to_u32  # noqa: E402
 from repro_torch.kernels.dbit import (  # noqa: E402
-    PROBE_WORDS,
+    SECTOR_WORDS,
     adjacent_dbitmap,
     adjacent_dbitmap_plain,
     adjacent_dbits,
@@ -260,9 +260,8 @@ def test_cuda_run_and_run_incremental_take_the_dbit_hooks(monkeypatch):
 # a numpy model of the kernel's lanes
 # ---------------------------------------------------------------------------
 
-#: the kernel's geometry (csrc/dbit.cu): threads a block, words a lane
-#: holds of a row
-_THREADS, _LANE_WORDS = 256, 4
+#: threads a block of the kernel (csrc/dbit.cu)
+_THREADS = 256
 
 
 def _clz(x: np.ndarray) -> np.ndarray:
@@ -270,101 +269,71 @@ def _clz(x: np.ndarray) -> np.ndarray:
     return 32 - np.frexp(x.astype(np.float64))[1]
 
 
-def _log_group(w: int, probe_words: int) -> int:
-    """log2 of the lanes a row takes: enough lanes of ``_LANE_WORDS`` words
-    to cover the probe, at most a warp (the kernel's ``log_group_for``)."""
-    chunks = -(-min(w, probe_words) // _LANE_WORDS)
-    return min(5, (chunks - 1).bit_length())
-
-
-def _kernel_model(words: np.ndarray, probe_words: int):
+def _kernel_model(words: np.ndarray):
     """The dbit kernel's lanes in numpy: (n, W) sorted keys -> ((n-1,)
-    positions, (W,) bitmap).  A warp takes the R = 32 / G pairs from
-    ``first`` on: group ``g`` holds row ``first + 1 + g``, lane ``l`` its
-    words ``(l % G) * 4 ..`` (one sector; G = 1 for the default probe of
-    one sector); the previous row comes from the group before
-    (``shfl_up``) or, for group 0, the halo row ``first``; a ballot over
-    the group picks its first lane with a difference; rows equal over the
-    probe walk on; lane ``j`` stores pair ``first + j`` from group ``j``."""
+    positions, (W,) bitmap).  A warp takes the 32 pairs from ``first`` on:
+    lane ``l`` holds row ``first + 1 + l``'s first sector; the previous row
+    comes from the lane before (``shfl_up``) or, for lane 0, the halo row
+    ``first``; rows equal over a sector walk on, both rows a sector a step;
+    lane ``l`` stores pair ``first + l``."""
     n, w = words.shape
     keys = words.astype(np.int64)
-    log_group = _log_group(w, probe_words)
-    size, rows_per_warp = 1 << log_group, 32 >> log_group
-    probe = size * _LANE_WORDS
     lane = np.arange(32)
-    group, lig = lane >> log_group, lane & (size - 1)
-    word0 = lig * _LANE_WORDS
     warps_per_block = _THREADS // 32
-    n_blocks = -(-(-(-n // rows_per_warp)) // warps_per_block)
+    n_blocks = -(-(-(-n // 32)) // warps_per_block)
     pos_out = np.full(max(n - 1, 0), -1, np.int64)
     bitmap = np.zeros(w, np.uint32)
 
-    def load(rows, cols, live):
-        out = np.zeros((32, _LANE_WORDS), np.int64)
-        for i in range(_LANE_WORDS):
-            ok = live & (cols + i < w)
-            out[ok, i] = keys[rows[ok], cols[ok] + i]
+    def load(rows, word, live):
+        out = np.zeros((32, SECTOR_WORDS), np.int64)
+        for i in range(min(SECTOR_WORDS, w - word)):
+            out[live, i] = keys[rows[live], word + i]
         return out
 
-    def lane_dbit(cur, prev, word):
+    def sector_dbit(cur, prev, word):
         pos = np.full(32, NO_DBIT, np.int64)
-        for i in range(_LANE_WORDS - 1, -1, -1):
+        for i in range(SECTOR_WORDS - 1, -1, -1):
             x = cur[:, i] ^ prev[:, i]
             pos = np.where(x != 0, 32 * (word + i) + _clz(np.maximum(x, 1)), pos)
         return pos
 
-    def group_dbit(lane_pos):
-        found = lane_pos != NO_DBIT  # the ballot
-        out = np.full(32, NO_DBIT, np.int64)
-        for g in range(rows_per_warp):
-            hit = np.flatnonzero(found[g * size:(g + 1) * size])
-            if hit.size:
-                out[g * size:(g + 1) * size] = lane_pos[g * size + hit[0]]
-        return out
-
     for block in range(n_blocks):
         s_bits = np.zeros(w, np.uint32)
         for warp in range(block * warps_per_block, (block + 1) * warps_per_block):
-            first = warp * rows_per_warp
-            r = first + 1 + group
+            first = warp * 32
+            r = first + 1 + lane
             pair = r < n
-            cur = load(r, word0, pair & (word0 < w))
-            halo = load(np.full(32, first), word0, (group == 0) & (first < n) & (word0 < w))
-            up = np.where((lane >= size)[:, None], cur[np.maximum(lane - size, 0)], cur)
-            prev = np.where((group == 0)[:, None], halo, up)
-            pos = group_dbit(lane_dbit(cur, prev, word0))
-            open_ = pair & (pos == NO_DBIT) & (probe < w)
-            base = probe
+            cur = load(r, 0, pair)
+            halo = load(np.full(32, first), 0, (lane == 0) & (first < n))
+            prev = np.where((lane == 0)[:, None], halo, cur[np.maximum(lane - 1, 0)])
+            pos = sector_dbit(cur, prev, 0)
+            open_ = pair & (pos == NO_DBIT) & (SECTOR_WORDS < w)
+            base = SECTOR_WORDS
             while open_.any():
-                wd = base + word0
-                live = open_ & (wd < w)
-                p = group_dbit(lane_dbit(load(r, wd, live), load(r - 1, wd, live), wd))
+                p = sector_dbit(load(r, base, open_), load(r - 1, base, open_), base)
                 pos = np.where(open_ & (p != NO_DBIT), p, pos)
-                open_ = open_ & (p == NO_DBIT) & (base + probe < w)
-                base += probe
-            for p in pos[pair & (lig == 0) & (pos != NO_DBIT)].tolist():
+                open_ = open_ & (p == NO_DBIT) & (base + SECTOR_WORDS < w)
+                base += SECTOR_WORDS
+            for p in pos[pair & (pos != NO_DBIT)].tolist():
                 s_bits[p // 32] |= np.uint32(1 << (31 - p % 32))
-            stored = pos[(lane << log_group) & 31]  # the store's shuffle
-            live = (lane < rows_per_warp) & (first + lane < n - 1)
-            pos_out[first + lane[live]] = stored[live]
+            pos_out[r[pair] - 1] = pos[pair]
         bitmap |= s_bits
     return pos_out, bitmap
 
 
-#: (W, probe words) of the model cases: the refresh's 4-word run, odd
-#: widths, full keys by sector (the walk) and whole (a group of four lanes
-#: a row), one word, 128 words by sector and whole (a warp a row)
-_MODEL_CASES = [(4, PROBE_WORDS), (3, PROBE_WORDS), (16, PROBE_WORDS), (16, 16),
-                (17, PROBE_WORDS), (1, PROBE_WORDS), (128, PROBE_WORDS), (128, 128)]
+#: widths of the model cases: the refresh's 4-word run, odd widths, one
+#: and two sectors, full keys (the walk past the first sector), a word
+#: past a whole sector, one word and 128 words
+_MODEL_WIDTHS = [4, 3, 8, 16, 17, 33, 1, 128]
 
 
-@pytest.mark.parametrize("w,probe_words", _MODEL_CASES)
+@pytest.mark.parametrize("w", _MODEL_WIDTHS)
 @pytest.mark.parametrize("tiles", [3, 4, 5])
-def test_kernel_model_matches_reference(w, probe_words, tiles):
+def test_kernel_model_matches_reference(w, tiles):
     """2^k - 1, 2^k and 2^k + 1 tiles (blocks) of rows: equal pairs and
     pairs that differ only in the last word straddle warp and tile edges,
     where the halo row is read."""
-    rows_per_block = _THREADS // 32 * (32 >> _log_group(w, probe_words))
+    rows_per_block = _THREADS  # a lane a pair
     n = tiles * rows_per_block + 1  # pairs fill the tiles
     words = _sorted_keys(n, w, "masked", seed=tiles)
     if w > 1:
@@ -374,7 +343,7 @@ def test_kernel_model_matches_reference(w, probe_words, tiles):
         words[rows_per_block + 8:rows_per_block + 40, :-1] = words[rows_per_block + 7, :-1]
         words = words[np.lexsort(words.T[::-1])]
     want = np.asarray(r_adjacent(jnp.asarray(words)))
-    pos, bits = _kernel_model(words, probe_words)
+    pos, bits = _kernel_model(words)
     np.testing.assert_array_equal(pos, want)
     np.testing.assert_array_equal(bits, _fold(want, w))
     assert (want == NO_DBIT).any() and (want != NO_DBIT).any()
