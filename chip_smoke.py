@@ -67,8 +67,33 @@ device or any phase fails:
    batches of 1024, 5 s), then again at the reference bench's SLO point
    (``target_p99_us`` = 4 x the unloaded p50): no torn read, no stale
    epoch, no error, every tenant served;
-9. kernel report: each kernel's launches on the main paths (phases 3, 5,
-   6, 7 and 8, each counted from 0), its device time at the main path's
+9. online: phase 3's 10M-key ``"cuda"`` result wrapped in an
+   ``OnlineIndex`` beside a ``"torch"`` twin wrapping phase 3's plain
+   result, the meta compared after every mutation.  Round 1: 1,000
+   fresh inserts (990 drawn from the generator, seed ``seed+21``; ten
+   base keys with the top bit of a byte set, each a new distinction
+   bit), 900 base deletes and 100 deletes of inserted keys; one
+   ``search_batch`` of 2^18 queries before the mutations and one after
+   (live inserts hit with their rids, deleted keys miss, untouched base
+   keys hit, misses miss; ``search`` equal to its row); the meta a
+   superset of the folded set's D-bitmap (Theorem 2); a rebuild that
+   falls back to the full resort (the bitmap moved); a reader pinned on
+   the old epoch keeps its answers.  Round 2: 200 base deletes and
+   re-inserts of 100 of them (no new bit), then a rebuild that merges
+   the delta.  Each rebuild equal to a full run over the folded set and
+   to the ``"torch"`` rebuild; µs per insert and delete, the batch with
+   and without the overlay, each rebuild's wall and stages, the
+   neighbor view's build and host bytes;
+10. run_many: five disjoint key sets of one Zipf(1.5, 64, 0) draw (seed
+   ``seed+11``): four of 2.09M down to 2.0M keys in the 2^21 bucket that
+   share their union's DS-metadata, as replicas of one index do (one
+   group: a pext launch per member, one bitonic launch over the stack),
+   and one of 300,000 keys with no metadata given (another bucket:
+   ``meta_from_keys``, then ``run``); each member equal to its single run
+   and to the ``"torch"`` backend's ``run_many``; the batched wall against
+   the single runs' (at the pipeline's defaults and unchunked);
+11. kernel report: each kernel's launches on the main paths (phases 3, 5,
+   6, 7, 8, 9 and 10, each counted from 0), its device time at the main path's
    shapes (and its time per call, host launch included), its plain
    version's time and the least time the card could take for the same
    bytes and operations; pk-window beside the plain gather of the same
@@ -79,7 +104,9 @@ device or any phase fails:
    (the mask form, then the PyTorch gather, compare and select); dbit in
    its positions form at the build's run, its bitmap form at the
    refresh's and at meta_from_keys' sorted full keys, with its launches
-   by form.
+   by form; bitonic also in the stacked form of ``run_many`` (one launch
+   over the members' whole blocks) beside the plain network member by
+   member.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -104,7 +131,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import torch  # noqa: E402
 
-from repro_torch.backends import get_backend  # noqa: E402
+from repro_torch.backends import cuda_backend, get_backend  # noqa: E402
 from repro_torch.configs.paper_index import ZipfConfig  # noqa: E402
 from repro_torch.core import plancache  # noqa: E402
 from repro_torch.core import btree  # noqa: E402
@@ -113,6 +140,7 @@ from repro_torch.core.btree import (  # noqa: E402
 from repro_torch.core.compress import make_plan  # noqa: E402
 from repro_torch.core.dbits import (  # noqa: E402
     NO_DBIT, compute_dbitmap, lex_less, sort_words, sort_words_keyed)
+from repro_torch.core.index import OnlineIndex  # noqa: E402
 from repro_torch.core.keyformat import KeySet  # noqa: E402
 from repro_torch.core.metadata import meta_from_keys  # noqa: E402
 from repro_torch.core.pipeline import ReconstructionPipeline, fold_keyset  # noqa: E402
@@ -147,6 +175,15 @@ N_BATCHES = 4
 N_TENANTS = 6
 TENANT_QUERIES = 1 << 15
 RAGGED_TENANT = 2
+ONLINE_INSERTS = 1000
+ONLINE_NEW_BITS = 10
+ONLINE_BASE_DELETES = 900
+ONLINE_DELTA_DELETES = 100
+ONLINE_REINSERTS = 100
+#: run_many: four members inside the 2^21 bucket and one of another
+#: bucket, at the default --n-keys
+MANY_SIZES = (2_090_000, 2_060_000, 2_030_000, 2_000_000)
+MANY_OTHER = 300_000
 
 #: kernel -> (CUDA source, the TPU kernel it replaces)
 KERNELS = {
@@ -170,6 +207,8 @@ PATH_KERNELS = {
                     "probe_many"),
     "mt_load": ("pext", "bitonic_block_sort", "merge_rank", "pk_window", "dbit",
                 "probe_many"),
+    "online": ("pext", "bitonic_block_sort", "merge_rank", "pk_window", "dbit", "probe"),
+    "run_many": ("pext", "bitonic_block_sort", "pk_window", "dbit"),
 }
 
 
@@ -276,6 +315,29 @@ def edge_checks(dev, rng) -> None:
         check(same(key_of_row[kr], kk), f"bitonic payload does not follow keys ({kind})")
         check(same(torch.sort(kr).values, torch.arange(n, device=dev)),
               f"bitonic payload is not a permutation ({kind})")
+    # the stacked form run_many launches: three members of a 256-row
+    # bucket (rounded up to one 512-row block each) and of 1024 rows, pad
+    # rows as run_many pads them, one bitonic launch, equal to the
+    # "torch" backend's member-by-member extract and sort
+    cuda_be, torch_be = get_backend("cuda", device=dev), get_backend("torch", device=dev)
+    for b, w, k in [(256, 3, 3), (1024, 16, 3)]:
+        sizes = [b - 7 * i for i in range(k)]
+        keys = [rand_words(rng, m, w, 0x0F0F0F0F) for m in sizes]
+        meta = meta_from_keys(np.concatenate(keys), dev)
+        words = np.stack([np.concatenate([x, np.full((b - x.shape[0], w), 0xFFFFFFFF,
+                                                     np.uint32)]) for x in keys])
+        rows = np.stack([np.concatenate([np.arange(m), plancache.ROW_PAD_A + np.arange(b - m)])
+                         for m in sizes])
+        args_ = (to_carrier(words, dev), to_carrier(np.stack([meta.dbitmap] * k), dev),
+                 torch.as_tensor(rows, device=dev), [make_plan(meta.dbitmap, w)] * k)
+        cudalib.reset_launches()
+        got = cuda_be.batched_extract_sort(*args_)
+        check(cudalib.LAUNCHES["bitonic_block_sort"] == 1 and cudalib.LAUNCHES["pext"] == k,
+              f"the stacked sort of {k} x {b} rows made {cudalib.LAUNCHES['bitonic_block_sort']} "
+              "bitonic launches")
+        want = torch_be.batched_extract_sort(*args_)
+        check(same(got[0], want[0]) and same(got[1], want[1]),
+              f"stacked bitonic sort of {k} x {b} rows != the torch backend's")
     # pk-window: starts on word boundaries (sh == 0), in the last word,
     # and outside the key (clipped), for pk 1, 16 and 32; the gathered rows
     # of the leaf form (16-byte chunks; 8-byte words for odd widths and a
@@ -470,6 +532,30 @@ def path_launches() -> dict:
     return {**cudalib.LAUNCHES, "dbit_by_form": dict(cudalib.LAUNCHES_BY_FORM["dbit"])}
 
 
+def add_launches(acc: dict, cur: dict) -> dict:
+    """Add one reading of :func:`path_launches` into ``acc``."""
+    for name, count in cur.items():
+        if isinstance(count, dict):
+            sub = acc.setdefault(name, {})
+            for form, c in count.items():
+                sub[form] = sub.get(form, 0) + c
+        else:
+            acc[name] = acc.get(name, 0) + count
+    return acc
+
+
+@contextmanager
+def counted(acc: dict):
+    """Count into ``acc`` the launches made inside the block (the counts
+    are set to 0 at its start), so that the checks between the blocks of
+    a path stay out of its counts."""
+    cudalib.reset_launches()
+    try:
+        yield
+    finally:
+        add_launches(acc, path_launches())
+
+
 def check_launches(path: str, launches: dict) -> None:
     for name in PATH_KERNELS[path]:
         check(launches[name] > 0, f"the {path} path never launched the {name} kernel")
@@ -497,6 +583,26 @@ def largest_rank_pass():
         yield seen
     finally:
         merge_ops.merge_ranks = orig
+
+
+@contextmanager
+def stacked_sort_call():
+    """Record the inputs of the largest bitonic launch the ``"cuda"``
+    backend makes inside the block: in ``run_many`` the one launch over
+    the stacked members.  The call itself runs unchanged."""
+    seen: dict = {}
+    orig = cuda_backend.block_sort
+
+    def spy(keys, rows, block=DEFAULT_BLOCK):
+        if int(keys.shape[0]) > seen.get("rows", -1):
+            seen.update(rows=int(keys.shape[0]), args=(keys, rows))
+        return orig(keys, rows, block=block)
+
+    cuda_backend.block_sort = spy
+    try:
+        yield seen
+    finally:
+        cuda_backend.block_sort = orig
 
 
 def rows_in(words: np.ndarray, table: np.ndarray) -> np.ndarray:
@@ -939,6 +1045,330 @@ def mt_load_phase(args, dev, launches: dict) -> None:
           "epoch, no error, every tenant served, with and without the SLO", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phases 9-10: the online index and batched reconstruction
+# ---------------------------------------------------------------------------
+
+def new_bit_keys(words: np.ndarray, rng, count: int) -> np.ndarray:
+    """``count`` fresh keys that each set a distinction bit no base key
+    has: a sampled base key with the top bit of one of its last bytes set
+    (the generator emits only 'a'..'z', so that bit is 0 in every key and
+    the key's neighbor differs from it first there)."""
+    keys = words[rng.choice(words.shape[0], count, replace=False)].copy()
+    for j in range(count):
+        byte = j % 4
+        keys[j, -1 - j // 4] |= np.uint32(0x80 << (8 * byte))
+    return keys
+
+
+def mutate_online(oi, oi_t, ops, what: str) -> tuple[list, list]:
+    """Apply ``ops`` (``("insert", key, rid)`` or ``("delete", key)``) to the
+    ``"cuda"`` index ``oi`` and its ``"torch"`` twin, the meta compared
+    after every mutation; the µs of each insert and delete on ``oi``."""
+    ins_us, del_us = [], []
+    for op in ops:
+        t1 = time.perf_counter()
+        if op[0] == "insert":
+            oi.insert(op[1], op[2])
+            ins_us.append((time.perf_counter() - t1) * 1e6)
+            oi_t.insert(op[1], op[2])
+        else:
+            ok = oi.delete(op[1])
+            del_us.append((time.perf_counter() - t1) * 1e6)
+            check(ok and oi_t.delete(op[1]), f"{what}: a delete found no key")
+        for field in ("dbitmap", "varbitmap", "refkey"):
+            check(np.array_equal(getattr(oi.meta, field), getattr(oi_t.meta, field)),
+                  f"{what}: {op[0]} left the cuda meta.{field} != torch's")
+    return ins_us, del_us
+
+
+def us_stats(us: list) -> dict:
+    return {"median": float(np.median(us)), "p90": float(np.percentile(us, 90)), "n": len(us)}
+
+
+def timed_rebuild(oi, oi_t, dev, acc: dict, what: str) -> tuple:
+    """One ``rebuild`` of ``oi`` (its wall, its launches counted into
+    ``acc``), held against a full ``run`` over the folded set under the
+    same meta (its bitmap pinned, as ``rebuild`` pins it) and against the
+    ``"torch"`` twin's rebuild, byte for byte."""
+    keep, delta = oi.log.fold_keyset(oi.keyset)
+    folded = fold_keyset(oi.keyset, keep, delta)
+    meta_before = oi.meta
+    torch.cuda.synchronize()
+    with counted(acc):
+        t1 = time.perf_counter()
+        oi2 = oi.rebuild()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    check(np.array_equal(oi2.keyset.words, folded.words)
+          and np.array_equal(oi2.keyset.rids, folded.rids), f"{what}: another keyset folded")
+    pipe = ReconstructionPipeline(backend="cuda", device=dev)
+    pipe.run(folded, meta=meta_before)
+    t1 = time.perf_counter()
+    full = pipe.run(folded, meta=meta_before)
+    full_wall = time.perf_counter() - t1
+    full.meta = dataclasses.replace(full.meta, dbitmap=full.extract_bitmap.copy())
+    results_equal(oi2.result, full, f"{what} vs a full run over the folded set")
+    del full
+    oi2_t = oi_t.rebuild()
+    results_equal(oi2.result, oi2_t.result, f"{what}, cuda vs torch")
+    st = oi2.result.stats
+    line = {"n_keys": st["n_keys"], "merged": bool(st["incremental"]),
+            "fallback": st.get("incremental_fallback"), "wall_s": wall,
+            "full_run_wall_s": full_wall,
+            "timings_s": {k: v for k, v in oi2.result.timings.items()},
+            "epoch": oi2.snapshots.epoch}
+    return oi2, oi2_t, line
+
+
+def online_phase(args, dev, rng, keyset, res, res_torch, launches: dict) -> dict:
+    """Phase 9: the slice's index taken online on ``"cuda"`` beside a
+    ``"torch"`` twin given the same mutations, the meta compared after
+    each.  Round 1: 1,000 fresh inserts (ten of them set a new
+    distinction bit), 900 base and 100 delta deletes, one ``search_batch``
+    of 2^18 queries with the overlay (and one before any mutation,
+    without it), single ``search`` calls, then a rebuild that falls back
+    to the full resort; a reader pinned on the old epoch keeps its
+    answers.  Round 2: 200 base deletes and re-inserts of 100 of those
+    keys, which set no new bit, then a rebuild that merges the delta.  The
+    path is counted from 0 over both rounds."""
+    n, w = keyset.n, keyset.n_words
+    t0 = time.perf_counter()
+    dk = zipf_keys(ZipfConfig(1.5, 64, 0, 4 * ONLINE_INSERTS), seed=args.seed + 21)
+    fresh = np.flatnonzero(~rows_in(dk.words, keyset.words))
+    n_zipf = ONLINE_INSERTS - ONLINE_NEW_BITS
+    check(fresh.size >= n_zipf, f"only {fresh.size} fresh keys for the online inserts")
+    ins_words = np.concatenate([dk.words[fresh[rng.permutation(fresh.size)[:n_zipf]]],
+                                new_bit_keys(keyset.words, rng, ONLINE_NEW_BITS)])
+    ins_rids = np.arange(n, n + ONLINE_INSERTS, dtype=np.uint32)
+    del_rows = rng.choice(n, ONLINE_BASE_DELETES, replace=False)
+    del_ins = rng.choice(ONLINE_INSERTS, ONLINE_DELTA_DELETES, replace=False)
+    data_s = time.perf_counter() - t0
+
+    # each index wraps a shallow copy: inserts replace the copy's meta,
+    # and the kernel report still reads phase 3's result
+    oi = OnlineIndex(keyset=keyset, result=dataclasses.replace(res), device=dev)
+    oi_t = OnlineIndex(keyset=keyset, result=dataclasses.replace(res_torch), backend="torch",
+                       device=dev)
+    q_np, expect = make_queries(keyset.words, rng)
+    # the mutated keys take the first lanes: live inserts hit, deleted
+    # inserts and deleted base keys miss
+    k_ins, k_del = ONLINE_INSERTS, ONLINE_BASE_DELETES
+    q_np[:k_ins] = ins_words
+    expect[:k_ins] = ins_rids
+    expect[del_ins] = NOT_FOUND_RID
+    q_np[k_ins:k_ins + k_del] = keyset.words[del_rows]
+    expect[k_ins:k_ins + k_del] = NOT_FOUND_RID
+    deleted = np.zeros(n, bool)
+    deleted[del_rows] = True
+    base_hits = np.flatnonzero(expect != NOT_FOUND_RID)
+    base_hits = base_hits[base_hits >= k_ins + k_del]
+    expect[base_hits[deleted[expect[base_hits]]]] = NOT_FOUND_RID  # sampled a deleted row
+    found0, rid0 = oi.search_batch(q_np)
+    plain_search_s = median_wall(lambda: oi.search_batch(q_np), reps=3)
+    f0_t, r0_t = oi_t.search_batch(q_np)
+    check(np.array_equal(found0, f0_t) and np.array_equal(rid0, r0_t),
+          "online search_batch before the mutations: cuda != torch")
+    t1 = time.perf_counter()
+    oi._neighbor_view()
+    view_s = time.perf_counter() - t1
+    oi_t._neighbor_view()
+
+    acc: dict = {}  # the path's launches (the torch twin makes none)
+    dbits_before = int(oi.meta.n_dbits)
+    ops = [("insert", k, int(r)) for k, r in zip(ins_words, ins_rids)]
+    deletes = [keyset.words[r] for r in del_rows] + [ins_words[i] for i in del_ins]
+    ops += [("delete", deletes[i]) for i in rng.permutation(len(deletes))]
+    with counted(acc):
+        ins_us, del_us = mutate_online(oi, oi_t, ops, "online round 1")
+        found, rid = oi.search_batch(q_np)
+        overlay_search_s = median_wall(lambda: oi.search_batch(q_np), reps=3)
+    check(oi.meta.n_dbits > dbits_before, "no online insert set a new distinction bit")
+    f_t, r_t = oi_t.search_batch(q_np)
+    check(np.array_equal(found, f_t) and np.array_equal(rid, r_t),
+          "online search_batch: cuda != torch")
+    check(np.array_equal(found, expect != NOT_FOUND_RID), "an online search found the wrong keys")
+    check(np.array_equal(rid[found], expect[found]), "an online search returned a wrong rid")
+    with counted(acc):
+        singles = [(i, oi.search(q_np[i])) for i in rng.choice(BATCH, 64, replace=False)]
+        # a delete's cost is its one-query search: that search alone, and
+        # the backend's lookup of one query alone
+        one = q_np[k_ins + k_del : k_ins + k_del + 1]
+        search_1_s = median_wall(lambda: oi.search(one[0]), reps=21)
+        lookup_1_s = median_wall(lambda: oi._backend_obj().lookup(
+            oi._snapshot.tree, to_carrier(one, dev)), reps=21)
+    for i, got in singles:
+        check(got == (bool(found[i]), int(rid[i])), "search differs from its row of search_batch")
+    keep, delta = oi.log.fold_keyset(keyset)
+    exact = meta_from_keys(fold_keyset(keyset, keep, delta).words, dev,
+                           dbitmap_fn=adjacent_dbitmap)
+    check(not (exact.dbitmap & ~oi.meta.dbitmap).any(),
+          "the online meta is not a superset of the folded set's D-bitmap")
+    host_bytes = {"neighbor_view": int(oi._neighbor_view().nbytes),
+                  "delta": int(oi._delta.nbytes)}
+
+    # rebuild 1 (a new bit: the full resort); a reader pinned on epoch 0
+    pinned = oi.snapshots.acquire()
+    gone = to_carrier(keyset.words[del_rows[:256]], dev)
+    oi2, oi2_t, rebuild_fallback = timed_rebuild(oi, oi_t, dev, acc, "online rebuild 1")
+    check(not rebuild_fallback["merged"] and rebuild_fallback["fallback"] == "dbitmap_changed",
+          f"online rebuild 1 took {rebuild_fallback}")
+    f_old, r_old = pinned.lookup(oi._backend_obj(), gone)
+    check(bool(f_old.all()) and np.array_equal(to_u32(r_old), del_rows[:256].astype(np.uint32)),
+          "a reader pinned on the old epoch lost its pre-rebuild answers")
+    oi.snapshots.release(pinned)
+    check(oi._snapshot.epoch == 0 and oi2._snapshot.epoch == 1, "the epochs did not advance")
+    f_pre, r_pre = oi.search_batch(q_np)
+    check(np.array_equal(f_pre, found) and np.array_equal(r_pre, rid),
+          "the pre-rebuild index answers differently after the rebuild")
+    f2, r2 = oi2.search_batch(q_np)
+    check(np.array_equal(f2, found) and np.array_equal(r2[f2], rid[found]),
+          "the rebuilt index answers differently")
+    del oi, oi_t
+
+    # round 2: base deletes and re-inserts of deleted keys set no bit, so
+    # the rebuild merges
+    back = rng.choice(oi2.keyset.n, 2 * ONLINE_REINSERTS, replace=False)
+    back_words = oi2.keyset.words[back]
+    ops = [("delete", k) for k in back_words]
+    ops += [("insert", k, int(n + ONLINE_INSERTS + j))
+            for j, k in enumerate(back_words[:ONLINE_REINSERTS])]
+    dbits_round2 = int(oi2.meta.n_dbits)
+    with counted(acc):
+        ins2_us, del2_us = mutate_online(oi2, oi2_t, ops, "online round 2")
+    check(oi2.meta.n_dbits == dbits_round2, "a re-insert set a new distinction bit")
+    oi3, _, rebuild_merged = timed_rebuild(oi2, oi2_t, dev, acc, "online rebuild 2")
+    check(rebuild_merged["merged"], f"online rebuild 2 took {rebuild_merged}")
+    launches["online"] = acc
+    check_launches("online", launches["online"])
+    f3, r3 = oi3.search_batch(back_words)
+    check(bool(f3[:ONLINE_REINSERTS].all()) and not f3[ONLINE_REINSERTS:].any()
+          and np.array_equal(r3[:ONLINE_REINSERTS],
+                             n + ONLINE_INSERTS + np.arange(ONLINE_REINSERTS)),
+          "the second rebuild answers the re-inserted keys wrong")
+    line = {
+        "n_base": n, "inserts": ONLINE_INSERTS, "new_bit_inserts": ONLINE_NEW_BITS,
+        "base_deletes": ONLINE_BASE_DELETES, "delta_deletes": ONLINE_DELTA_DELETES,
+        "round2_deletes": 2 * ONLINE_REINSERTS, "round2_reinserts": ONLINE_REINSERTS,
+        "data_s": data_s, "insert_us": us_stats(ins_us), "delete_us": us_stats(del_us),
+        "round2_insert_us": us_stats(ins2_us), "round2_delete_us": us_stats(del2_us),
+        "search_1_us_median": search_1_s * 1e6, "lookup_1_us_median": lookup_1_s * 1e6,
+        "search_batch_queries": BATCH, "search_batch_s_no_overlay": plain_search_s,
+        "search_batch_s_overlay": overlay_search_s,
+        "dbits_built": dbits_before, "dbits_online": dbits_round2,
+        "dbits_exact": int(exact.n_dbits),
+        "rebuild_fallback": rebuild_fallback, "rebuild_merged": rebuild_merged,
+        "neighbor_view_build_s": view_s, "host_bytes": host_bytes,
+        "launches": launches["online"],
+    }
+    print(f"[online] {json.dumps(line)}", flush=True)
+    print("[online] meta after every mutation == torch; search_batch == expected == torch; "
+          "meta a superset of the folded set's; both rebuilds (full resort, merge) == a full "
+          "run over the folded set == torch; the pinned epoch keeps its answers", flush=True)
+    return line
+
+
+def many_sets(args, rng) -> list:
+    """The replication scenario's key sets: disjoint parts of one
+    Zipf(1.5, 64, 0) draw (seed ``seed+11``), four at drifting sizes
+    inside one bucket (2.09M down to 2.0M keys at the default
+    ``--n-keys``, scaled down with it) and a fifth of another bucket."""
+    scale = min(1.0, args.n_keys / 10_000_000)
+    sizes = [int(s * scale) for s in MANY_SIZES] + [int(MANY_OTHER * scale)]
+    zk = zipf_keys(ZipfConfig(1.5, 64, 0, sum(sizes) * 21 // 20), seed=args.seed + 11)
+    check(zk.n >= sum(sizes), f"run_many: {zk.n} unique keys, fewer than {sum(sizes)}")
+    perm = rng.permutation(zk.n)
+    sets, at = [], 0
+    for size in sizes:
+        pick = perm[at : at + size]
+        at += size
+        sets.append(KeySet(words=zk.words[pick], lengths=zk.lengths[pick],
+                           rids=np.arange(size, dtype=np.uint32)))
+    return sets
+
+
+def run_many_phase(args, dev, rng, launches: dict) -> dict:
+    """Phase 10: ``run_many`` on ``"cuda"`` over four same-bucket key sets
+    that share one DS-metadata, as replicas of one index do (one group: a
+    pext per member, one bitonic launch over the stack), and one of
+    another bucket with no metadata given (``meta_from_keys``, then
+    ``run``); the path counted from 0.  Each member == its single
+    ``"cuda"`` run == the ``"torch"`` backend's ``run_many``; the batched
+    wall beside the single runs'."""
+    t0 = time.perf_counter()
+    sets = many_sets(args, rng)
+    group = len(MANY_SIZES)
+    # the group's members alone would not always compress to one width
+    # (about 96 D-bits each at 2M keys); their union's metadata does
+    union = meta_from_keys(np.concatenate([ks.words for ks in sets[:group]]), dev,
+                           dbitmap_fn=adjacent_dbitmap)
+    metas = [union] * group + [None]
+    data_s = time.perf_counter() - t0
+    b = plancache.bucket_for("run_many", sets[0].n)
+    check(all(plancache.bucket_for("run_many", ks.n) == b for ks in sets[:group])
+          and plancache.bucket_for("run_many", sets[-1].n) != b,
+          "run_many: the sizes do not make one group and one other shape")
+    pipe = ReconstructionPipeline(backend="cuda", device=dev)
+    pipe.run_many(sets, metas)  # allocator warm-up
+    torch.cuda.reset_peak_memory_stats(dev)
+    cudalib.reset_launches()
+    with stacked_sort_call() as stacked:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = pipe.run_many(sets, metas)
+        torch.cuda.synchronize()
+        many_wall = time.perf_counter() - t1
+    launches["run_many"] = path_launches()
+    check_launches("run_many", launches["run_many"])
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    check([r.stats.get("batched") for r in out] == [group] * group + [None],
+          f"run_many grouped {[r.stats.get('batched') for r in out]}")
+    # the other shape alone, as run_many runs it: its own launches
+    cudalib.reset_launches()
+    pipe.run_many(sets[-1:])
+    alone = path_launches()
+    lm = launches["run_many"]
+    check(lm["pext"] - alone["pext"] == group
+          and lm["bitonic_block_sort"] - alone["bitonic_block_sort"] == 1,
+          f"the batched group launched pext {lm['pext'] - alone['pext']} and bitonic "
+          f"{lm['bitonic_block_sort'] - alone['bitonic_block_sort']} times")
+    single_s, unchunked_s = [], []
+    flat = ReconstructionPipeline(backend="cuda", device=dev, chunk_threshold=1 << 24)
+    for ks, meta, got in zip(sets, metas, out):
+        pipe.run(ks, meta=meta)
+        t1 = time.perf_counter()
+        single = pipe.run(ks, meta=meta)
+        single_s.append(time.perf_counter() - t1)
+        results_equal(got, single, "run_many member vs its single run")
+        flat.run(ks, meta=meta)
+        t1 = time.perf_counter()
+        flat.run(ks, meta=meta)
+        unchunked_s.append(time.perf_counter() - t1)
+    del single
+    want = ReconstructionPipeline(backend="torch", device=dev).run_many(sets, metas)
+    for got, ref in zip(out, want):
+        results_equal(got, ref, "run_many, cuda vs torch")
+    del want
+    line = {
+        "members": len(sets), "sizes": [ks.n for ks in sets], "key_words": sets[0].n_words,
+        "comp_words": [r.stats["comp_sort_key_words"] - 1 for r in out],
+        "bucket": b, "other_bucket": plancache.bucket_for("run_many", sets[-1].n),
+        "data_s": data_s,
+        "stacked_full_gib": group * b * sets[0].n_words * 8 / 2**30,
+        "run_many_wall_s": many_wall, "single_runs_s": single_s,
+        "single_runs_sum_s": sum(single_s), "single_unchunked_runs_s": unchunked_s,
+        "single_unchunked_sum_s": sum(unchunked_s),
+        "batched_extract_sort_s": out[0].timings["sort"] * group,
+        "stacked_sort_rows": int(stacked["args"][0].shape[0]),
+        "peak_mem_gib": peak_gib, "launches": launches["run_many"],
+        "other_shape_launches": alone,
+    }
+    print(f"[run_many] {json.dumps(line)}", flush=True)
+    print(f"[run_many] each member == its single run == torch run_many; the group of "
+          f"{group}: pext {group} times, bitonic once", flush=True)
+    return {"line": line, "stacked": stacked, "sizes": [ks.n for ks in sets[:group]]}
+
+
 def main(argv=None) -> int:
     """Run the phases on CUDA device 0."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1037,7 +1467,8 @@ def main(argv=None) -> int:
     check(same(torch.sort(res.rid_sorted).values, torch.arange(n, device=dev)),
           "rid_sorted is not a permutation")
     ref_pipe = ReconstructionPipeline(backend="torch", chunk_threshold=threshold, device=dev)
-    results_equal(res, ref_pipe.run(keyset), "cuda vs torch")
+    res_torch = ref_pipe.run(keyset)  # kept for phase 9's "torch" twin
+    results_equal(res, res_torch, "cuda vs torch")
     results_equal(full, ref_pipe.run(keyset, full_keys=True), "full keys, cuda vs torch")
     del full, ref_pipe
     print("[slice] sorted run, permutation, tree and meta == torch backend", flush=True)
@@ -1188,7 +1619,14 @@ def main(argv=None) -> int:
     # -- 8. mt_load: the closed-loop harness, with and without the SLO ----------
     mt_load_phase(args, dev, launches)
 
-    # -- 9. kernel report at the main paths' shapes ------------------------------
+    # -- 9. online: phase 3's index takes inserts, deletes, searches, rebuilds ---
+    online_phase(args, dev, rng, keyset, res, res_torch, launches)
+    del res_torch
+
+    # -- 10. run_many: four same-bucket key sets batched, a fifth alone ----------
+    many = run_many_phase(args, dev, rng, launches)
+
+    # -- 11. kernel report at the main paths' shapes -----------------------------
     b = plancache.bucket(n)
     words_dev = plancache.pad_tail(to_carrier(keyset.words, dev), b, plancache.SENTINEL)
     plan = make_plan(res.extract_bitmap, keyset.n_words)
@@ -1378,7 +1816,29 @@ def main(argv=None) -> int:
         **measure(lambda: adjacent_dbitmap(full_run), lambda: adjacent_dbitmap_plain(full_run),
                   *dbit_cost(full_counts, "bitmap"), "dbit (full-key bitmap form)"),
         **dbit_floors(full_counts, "bitmap")}
-    del comp, comp_m, rows_m, words_dev, rowc
+    # bitonic's stacked form: the one launch over run_many's stacked
+    # members (each rounded up to whole blocks), beside the plain network
+    # member by member
+    keys_s, rows_s = many["stacked"]["args"]
+    k_s = len(many["sizes"])
+    n_pad = int(keys_s.shape[0]) // k_s
+    wc_s = int(keys_s.shape[1])
+
+    def stacked_plain():
+        parts = [block_sort_plain(keys_s[i * n_pad:(i + 1) * n_pad],
+                                  rows_s[i * n_pad:(i + 1) * n_pad]) for i in range(k_s)]
+        return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+    rows_total = k_s * n_pad
+    bitonic_entry = next(e for e in report if e["name"] == "bitonic_block_sort")
+    bitonic_entry["stacked_form"] = {
+        "shape": {"members": k_s, "rows_per_member": n_pad, "key_words": wc_s},
+        "launches": launches["run_many"]["bitonic_block_sort"]
+        - many["line"]["other_shape_launches"]["bitonic_block_sort"],
+        **measure(lambda: block_sort(keys_s, rows_s), stacked_plain,
+                  2 * rows_total * (wc_s + 1) * 4,
+                  rows_total // 2 * log_block * (log_block + 1) // 2, "bitonic (stacked form)")}
+    del comp, comp_m, rows_m, words_dev, rowc, keys_s, rows_s
     print(json.dumps({"kernels": report}), flush=True)
     print(f"[wall] the whole script took {time.perf_counter() - t_script:.1f} s", flush=True)
     print(card_line(), flush=True)

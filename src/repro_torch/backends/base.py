@@ -31,9 +31,11 @@ GPU and no explicit device, construction raises.
 shares the contract: the merge of two ascending (key, row) runs is
 byte-identical to ``sort`` over their concatenation.
 
-Ops of a later slice of the port — ``fused_extract_sort`` and
-``batched_extract_sort`` (``run_many``) — raise ``NotImplementedError``
-naming their ROADMAP item.
+``fused_extract_sort`` (only where ``supports_fused``) runs extract and
+sort as one call; ``batched_extract_sort`` (only where
+``supports_batched``) extracts and sorts a stacked batch of same-bucket
+keysets for ``run_many``.  Both keep the sort's contract member by
+member.
 """
 
 from __future__ import annotations
@@ -51,7 +53,6 @@ __all__ = [
     "register_backend",
     "get_backend",
     "available_backends",
-    "not_ported",
 ]
 
 _REGISTRY: dict[str, Type["ExecutionBackend"]] = {}
@@ -82,13 +83,6 @@ def available_backends() -> list[str]:
     return sorted(_REGISTRY)
 
 
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error an op of a later slice raises."""
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet (ROADMAP {item})"
-    )
-
-
 class ExecutionBackend(abc.ABC):
     """One execution substrate for the pipeline's stages.
 
@@ -97,6 +91,11 @@ class ExecutionBackend(abc.ABC):
     """
 
     name: str = "?"
+    #: backend runs extract+sort as one call (``fused_extract_sort``)
+    supports_fused: bool = False
+    #: backend extracts and sorts a stacked batch of same-bucket keysets
+    #: (``batched_extract_sort``, the fast path of ``run_many``)
+    supports_batched: bool = False
 
     #: the adjacent-D-bit passes over a sorted run (None: the plain pass):
     #: ``dbitmap_fn(sorted_words) -> (W,)`` bitmap words, for
@@ -113,6 +112,14 @@ class ExecutionBackend(abc.ABC):
     @abc.abstractmethod
     def extract(self, words: torch.Tensor, plan) -> torch.Tensor:
         """(n, W) full keys -> (n, Wc) compressed keys (int64 carriers)."""
+
+    def extract_dynamic(self, words: torch.Tensor, bitmap,
+                        n_words_out: int) -> torch.Tensor:
+        """Extraction under a (W,) bitmap given as data, no plan made on
+        the host (``core.compress.extract_bits_dynamic``)."""
+        from repro_torch.core.compress import extract_bits_dynamic
+
+        return extract_bits_dynamic(words, bitmap, n_words_out)
 
     # --------------------------------------------------------------- sort
     @abc.abstractmethod
@@ -207,11 +214,30 @@ class ExecutionBackend(abc.ABC):
         comp_unused = np.zeros((0, int(comp_sorted.shape[1])), np.uint32)
         return meta_on_rebuild(comp_unused, meta, np.asarray(ref_key), dbitmap_comp=bits)
 
-    # ------------------------------------------------ later slices (raise)
-    def fused_extract_sort(self, *args, **kwargs):
-        """extract+sort as one program — not ported yet."""
-        raise not_ported("fused_extract_sort", "Queue 1 item 9")
+    # ---------------------------------------------------- fused path
+    def fused_extract_sort(self, words, plan, rows, *, n_valid=None, keep_padded=False):
+        """extract+sort as one call; only if ``supports_fused``.
+        ``n_valid``/``keep_padded`` behave as in :meth:`sort`."""
+        raise NotImplementedError(f"backend {self.name} has no fused path")
 
-    def batched_extract_sort(self, *args, **kwargs):
-        """Stacked extract+sort of run_many — not ported yet."""
-        raise not_ported("batched_extract_sort", "Queue 1 item 9")
+    # ------------------------------------------------- batched (many)
+    def batched_extract_sort(
+        self, words: torch.Tensor, bitmaps: torch.Tensor, rows: torch.Tensor, plans: list,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Extract+sort a stacked batch of same-shape keysets.
+
+        ``words``: (k, b, W); ``bitmaps``: (k, W) per-member D-bitmaps
+        (all with the same output width); ``rows``: (k, b) distinct row
+        ids per member; ``plans``: the members' extraction plans.  Returns
+        ``(comp_sorted (k, b, Wc), row_sorted (k, b))``, each member in
+        ascending (key, row) order.  Only called when
+        ``supports_batched``; the default is the runtime-bitmap extract
+        and the keyed sort, member by member.
+        """
+        from repro_torch.core.dbits import sort_words_keyed
+
+        n_words_out = plans[0].n_words_out  # equal across the batch
+        out = [sort_words_keyed(self.extract_dynamic(words[i], bitmaps[i], n_words_out),
+                                rows[i])
+               for i in range(int(words.shape[0]))]
+        return torch.stack([k for k, _ in out]), torch.stack([r for _, r in out])

@@ -23,6 +23,13 @@
   key gathered;
 * ``lookup_many`` — ``lookup_many_planned`` with the same form over every
   tenant of the arena in one launch per call;
+* ``batched_extract_sort`` (``run_many``) — the pext kernel once per
+  member with that member's plan, then **one** bitonic launch over the
+  stacked ``(k·n_pad, Wc)`` rows, where ``n_pad`` is the member's bucket
+  rounded up to a multiple of the block (512), so no block straddles two
+  members; then one keyed sort of the whole stack with the member as its
+  leading key.  No fused path, as the reference's pallas backend has
+  none;
 * ``refresh_meta`` — the dbit kernel's bitmap form reduces the sorted
   run's adjacent D-bits to its Wc bitmap words on the card; the base
   class maps their set bits through D-offset on the host.  The
@@ -35,11 +42,14 @@ testable without a card; on a CUDA device it launches the kernels.
 
 from __future__ import annotations
 
+import torch
+
 from repro_torch.core.compress import ExtractionPlan
 from repro_torch.core.dbits import sort_words_keyed
-from repro_torch.core.plancache import merge_padded, sort_padded
+from repro_torch.core.plancache import (
+    ROW_PAD_B, SENTINEL, iota, merge_padded, pad_tail, sort_padded)
 from repro_torch.kernels import merge
-from repro_torch.kernels.bitonic import block_sort
+from repro_torch.kernels.bitonic import DEFAULT_BLOCK, block_sort
 from repro_torch.kernels.build import gather_windows, pk_windows
 from repro_torch.kernels.dbit import adjacent_dbitmap, adjacent_dbits
 from repro_torch.kernels.lookup import leaf_stage, leaf_stage_many
@@ -56,6 +66,7 @@ class CudaBackend(ExecutionBackend):
     pk-window build + probe lookup + tenant-major probe lookup_many + dbit
     refresh."""
 
+    supports_batched = True
     dbitmap_fn = staticmethod(adjacent_dbitmap)
     dpos_fn = staticmethod(adjacent_dbits)
 
@@ -68,6 +79,26 @@ class CudaBackend(ExecutionBackend):
 
         return sort_padded(keys, rows, impl=impl, n_valid=n_valid,
                            keep_padded=keep_padded)
+
+    def batched_extract_sort(self, words, bitmaps, rows, plans):
+        del bitmaps  # pext walks the members' plans
+        k, b = int(words.shape[0]), int(words.shape[1])
+        # each member fills whole blocks, so no block straddles two
+        # members: the rows past b are all-ones keys with row ids above
+        # every pad row of the pipeline, so they sort last in the member
+        n_pad = -(-b // DEFAULT_BLOCK) * DEFAULT_BLOCK
+        comp = torch.stack([pext(words[i], p) for i, p in enumerate(plans)])
+        wc = int(comp.shape[2])
+        extra = ROW_PAD_B + iota(n_pad, comp.device)[b:]
+        comp = pad_tail(comp, n_pad, SENTINEL, dim=1).reshape(k * n_pad, wc)
+        rws = torch.cat([rows, extra.expand(k, n_pad - b)], dim=1).reshape(k * n_pad)
+        keys, rws = block_sort(comp, rws, block=DEFAULT_BLOCK)
+        # rows repeat across members, so the member leads the key: one
+        # series of stable sorts orders the whole stack, member by member
+        member = torch.arange(k, device=comp.device).repeat_interleave(n_pad)
+        keyed, rws = sort_words_keyed(torch.cat([member[:, None], keys], dim=1), rws)
+        keys = keyed[:, 1:].reshape(k, n_pad, wc)[:, :b].contiguous()
+        return keys, rws.reshape(k, n_pad)[:, :b].contiguous()
 
     def merge_sorted(self, keys_a, rows_a, keys_b, rows_b, *,
                      n_valid_a=None, n_valid_b=None, keep_padded=False):

@@ -11,6 +11,11 @@ Compressed keys are ``(n, Wc)`` int64-carrier words, word 0 most
 significant, bit order preserved (ascending source position -> ascending
 output position), which is what Theorem 2 needs for order equivalence.
 The slack bits of the last compressed word are zero for every key.
+
+``extract_bits_dynamic`` takes the bitmap as a tensor instead of a plan
+(the reference's runtime-bitmap form, for bitmaps updated online): each
+source bit's output slot is the running popcount of the bitmap, found on
+the device, so no plan is made on the host.
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ import torch
 
 from .dbits import dbit_positions_nonempty
 
-__all__ = ["ExtractionPlan", "make_plan", "extract_bits"]
+__all__ = ["ExtractionPlan", "make_plan", "plan_bitmap", "extract_bits", "extract_bits_dynamic"]
 
 
 @dataclass(frozen=True)
@@ -76,6 +81,15 @@ def make_plan(bitmap: np.ndarray, n_words_in: int | None = None) -> ExtractionPl
     )
 
 
+def plan_bitmap(plan: ExtractionPlan) -> np.ndarray:
+    """The (n_words_in,) ``uint32`` D-bitmap a plan was made from (the
+    inverse of :func:`make_plan`)."""
+    pos = np.asarray(plan.positions, np.int64)
+    bm = np.zeros(plan.n_words_in, np.uint32)
+    np.bitwise_or.at(bm, pos // 32, (np.uint32(1) << (31 - pos % 32).astype(np.uint32)))
+    return bm
+
+
 def extract_bits(words: torch.Tensor, plan: ExtractionPlan) -> torch.Tensor:
     """(n, W) full keys -> (n, Wc) compressed keys, one shift+mask+shift+or
     per planned bit over all keys at once (no mask needed: a 0/1 bit
@@ -87,3 +101,38 @@ def extract_bits(words: torch.Tensor, plan: ExtractionPlan) -> torch.Tensor:
         bit = (words[:, plan.src_word[b]] >> plan.src_shift[b]) & 1
         out[:, dw] |= bit << ds
     return out
+
+
+def extract_bits_dynamic(
+    words: torch.Tensor, bitmap, n_words_out: int
+) -> torch.Tensor:
+    """(n, W) full keys -> (n, n_words_out) compressed keys under a (W,)
+    D-bitmap given as data (int64 carrier tensor or numpy ``uint32``).
+
+    The reference ranks the selected bit columns with a cumulative
+    popcount of the bitmap and scatters the key's bit matrix into its
+    slots; here the same ranks give each source bit its output word and
+    shift, and the bits are added into place one source word at a time,
+    so only an (n, 32) slab is live.  Bits ranked past
+    ``32 * n_words_out`` are dropped, as the reference's scatter drops
+    them; an empty bitmap gives all-zero keys.
+    """
+    n, w = words.shape
+    dev = words.device
+    bm = bitmap.to(device=dev, dtype=torch.int64) if isinstance(bitmap, torch.Tensor) \
+        else torch.as_tensor(np.asarray(bitmap, np.uint32).astype(np.int64), device=dev)
+    shifts = torch.arange(31, -1, -1, device=dev)
+    sel = ((bm[:, None] >> shifts) & 1).reshape(w * 32)
+    slot = torch.cumsum(sel, 0) - 1
+    b_out = int(n_words_out) * 32
+    # unselected and overflowing bits park in one extra word, dropped below
+    slot = torch.where((sel == 1) & (slot < b_out), slot, torch.full_like(slot, b_out))
+    dst_word = slot // 32
+    dst_shift = 31 - slot % 32
+    out = torch.zeros((n, int(n_words_out) + 1), dtype=torch.int64, device=dev)
+    for src in range(w):
+        cols = slice(32 * src, 32 * src + 32)
+        bits = (words[:, src : src + 1] >> shifts) & 1
+        # slots are distinct within a word, so the sum is the OR
+        out.index_add_(1, dst_word[cols], bits << dst_shift[cols])
+    return out[:, : int(n_words_out)].contiguous()

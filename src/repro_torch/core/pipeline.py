@@ -23,10 +23,16 @@ work; ``async_dispatch`` syncs once at the end instead.
   runs, rebuild the tree.  The output is byte-identical to a full ``run``
   over the folded keyset with the same DS-metadata.
 
+* **fused fast path** — ``fused=True`` on a backend that supports it
+  runs extract+sort as one call (``stats["fused"]``);
+* **batched multi-index reconstruction** — ``run_many`` groups
+  same-bucket keysets and runs their extract+sort as one stacked call of
+  the backend (``batched_extract_sort``), then builds each member; every
+  member equals its own single ``run`` byte for byte.
+
 ``publish_to=<repro_torch.core.snapshot.SnapshotCell>`` freezes the
 finished result into the cell as its next epoch, on every return path of
-``run`` and ``run_incremental``.  ``run_many`` raises
-``NotImplementedError`` naming its ROADMAP item.
+``run`` and ``run_incremental``.
 """
 
 from __future__ import annotations
@@ -38,7 +44,6 @@ import numpy as np
 import torch
 
 from repro_torch.backends import ExecutionBackend, get_backend
-from repro_torch.backends.base import not_ported
 
 from .btree import BTree, BTreeConfig
 from .keyformat import KeySet
@@ -140,6 +145,8 @@ class ReconstructionPipeline:
                    first time a run crosses the current threshold; the
                    :class:`~repro_torch.core.plancache.ChunkPlan` persists
                    on the pipeline.
+    fused:         run extract+sort as one call when the backend supports
+                   it (``supports_fused``); outputs are identical either way.
     device:        where the backend runs (CUDA unless named; ignored when
                    ``backend`` is an instance, which carries its own).
     """
@@ -152,6 +159,7 @@ class ReconstructionPipeline:
         chunk_size: int = 1 << 17,
         async_dispatch: bool = False,
         auto_tune_chunks: bool = False,
+        fused: bool = False,
         device=None,
     ) -> None:
         if isinstance(backend, ExecutionBackend):
@@ -164,6 +172,7 @@ class ReconstructionPipeline:
         self.chunk_size = int(chunk_size)
         self.async_dispatch = bool(async_dispatch)
         self.auto_tune_chunks = bool(auto_tune_chunks)
+        self.fused = bool(fused)
         self.chunk_plan = None
         self._last_cascade: dict = {}
         if self.chunk_size & (self.chunk_size - 1):
@@ -336,20 +345,28 @@ class ReconstructionPipeline:
             self.tune_chunking()
 
         chunks = 0
-        if full_keys:
-            comp, t_extract = words_dev, 0.0
-        else:
-            comp, t_extract = self._stage(sync, self.extract, words_dev, plan)
-        if n > self.chunk_threshold:
-            # large-N path: extraction stays one bucket-shaped pass; the
-            # sort splits into chunk sorts + the merge ladder
-            chunks = -(-n // self.chunk_size)
+        fused_used = (self.fused and self.backend.supports_fused and not full_keys
+                      and n <= self.chunk_threshold)
+        if fused_used:
+            t_extract = 0.0
             (comp_sorted_p, row_sorted_p), t_sort = self._stage(
-                sync, lambda: self._sort_chunked(comp, n, b))
+                sync, lambda: self.backend.fused_extract_sort(
+                    words_dev, plan, rows_dev, n_valid=n, keep_padded=True))
         else:
-            (comp_sorted_p, row_sorted_p), t_sort = self._stage(
-                sync, lambda: self.sort(comp, rows_dev, n_valid=n, keep_padded=True))
-        del comp
+            if full_keys:
+                comp, t_extract = words_dev, 0.0
+            else:
+                comp, t_extract = self._stage(sync, self.extract, words_dev, plan)
+            if n > self.chunk_threshold:
+                # large-N path: extraction stays one bucket-shaped pass; the
+                # sort splits into chunk sorts + the merge ladder
+                chunks = -(-n // self.chunk_size)
+                (comp_sorted_p, row_sorted_p), t_sort = self._stage(
+                    sync, lambda: self._sort_chunked(comp, n, b))
+            else:
+                (comp_sorted_p, row_sorted_p), t_sort = self._stage(
+                    sync, lambda: self.sort(comp, rows_dev, n_valid=n, keep_padded=True))
+            del comp
         comp_sorted = comp_sorted_p[:n]
         row_sorted = row_sorted_p[:n]
         rid_sorted = rids[row_sorted]
@@ -380,7 +397,7 @@ class ReconstructionPipeline:
             "total": (t_extract + t_sort + t_build) if sync
             else time.perf_counter() - t_run0,
         }
-        stats = self._stats(keyset, meta, comp_sorted, row_sorted, tree)
+        stats = self._stats(keyset, meta, comp_sorted, row_sorted, tree, fused_used)
         stats["chunked"] = chunks
         stats["async_dispatch"] = not sync
         stats["chunk_size"] = self.chunk_size
@@ -568,11 +585,111 @@ class ReconstructionPipeline:
             publish_to.publish(res)
         return res, folded
 
-    def run_many(self, *args, **kwargs):
-        """Batched multi-index reconstruction — not ported yet."""
-        raise not_ported("run_many", "Queue 1 item 9")
+    # ----------------------------------------------------- batched (many)
+    def run_many(
+        self,
+        keysets: list[KeySet],
+        metas: list[DSMeta | None] | None = None,
+    ) -> list[ReconstructionResult]:
+        """Reconstruct many independent indexes (the replication scenario).
 
-    def _stats(self, keyset, meta, comp_sorted, row_sorted, tree):
+        The metadata comes first (it fixes the compressed width); keysets
+        that share ``(bucket_for("run_many", n), n_words, Wc)`` form a
+        group whose extract+sort is one stacked ``batched_extract_sort``
+        call, then each member is built and refreshed on its own
+        (``stats["batched"]`` = the group's size).  A group of one, and
+        every keyset on a backend without ``supports_batched``, takes
+        ``run``.  Each result equals the member's own ``run`` byte for
+        byte.
+        """
+        if metas is None:
+            metas = [None] * len(keysets)
+        if len(metas) != len(keysets):
+            raise ValueError("metas must align with keysets")
+        if not self.backend.supports_batched:
+            return [self.run(ks, meta=m) for ks, m in zip(keysets, metas)]
+
+        from . import plancache
+
+        t0 = time.perf_counter()
+        metas = [
+            m if m is not None
+            else meta_from_keys(ks.words, self.device, dbitmap_fn=self.backend.dbitmap_fn)
+            for ks, m in zip(keysets, metas)
+        ]
+        t_meta = (time.perf_counter() - t0) / max(len(keysets), 1)
+        groups: dict[tuple[int, int, int], list[int]] = {}
+        for i, (ks, m) in enumerate(zip(keysets, metas)):
+            key = (plancache.bucket_for("run_many", ks.n), ks.n_words, m.plan().n_words_out)
+            groups.setdefault(key, []).append(i)
+
+        results: list = [None] * len(keysets)
+        for idxs in groups.values():
+            if len(idxs) < 2:
+                for i in idxs:
+                    results[i] = self.run(keysets[i], meta=metas[i])
+                continue
+            batched = self._run_batched([keysets[i] for i in idxs],
+                                        [metas[i] for i in idxs], t_meta)
+            for i, res in zip(idxs, batched):
+                results[i] = res
+        return results
+
+    def _run_batched(self, keysets, metas, t_meta) -> list[ReconstructionResult]:
+        """One group of ``run_many``: members padded to the shared bucket
+        with all-ones keys (they extract to the maximal compressed
+        pattern) and reserved row ids (``plancache.pad_run``), so each
+        member's pads sort strictly last and its first ``n`` rows are its
+        own single run."""
+        from . import plancache
+
+        k, dev = len(keysets), self.device
+        plans = [m.plan() for m in metas]
+        b = plancache.bucket_for("run_many", max(ks.n for ks in keysets))
+        padded = [plancache.pad_run(to_carrier(ks.words, dev), plancache.iota(ks.n, dev), b)
+                  for ks in keysets]
+        words = torch.stack([w for w, _ in padded])
+        rows = torch.stack([r for _, r in padded])
+        del padded
+        bitmaps = torch.stack([to_carrier(m.dbitmap, dev) for m in metas])
+        (comp_sorted, row_sorted), t_xs = self._stage(
+            True, self.backend.batched_extract_sort, words, bitmaps, rows, plans)
+
+        out = []
+        for i, (ks, meta) in enumerate(zip(keysets, metas)):
+            cs, rs = comp_sorted[i, : ks.n], row_sorted[i, : ks.n]
+            rids = to_carrier(ks.rids, dev)
+            lengths = torch.as_tensor(np.asarray(ks.lengths), device=dev)
+            tree, t_build = self._stage(True, self.build, cs, rs, meta, words[i, : ks.n],
+                                        lengths, rids)
+            t0 = time.perf_counter()
+            new_meta = self.refresh_meta(cs, meta, ks.words[0])
+            t_refresh = time.perf_counter() - t0
+            timings = {
+                "meta": t_meta,
+                "extract": 0.0,
+                "sort": t_xs / k,
+                "build": t_build,
+                "refresh_meta": t_refresh,
+                "total": t_xs / k + t_build,
+            }
+            # "batched" carries the batching fact; "fused" stays the
+            # backend's fused_extract_sort path
+            stats = self._stats(ks, meta, cs, rs, tree, fused_used=False)
+            stats["batched"] = k
+            out.append(ReconstructionResult(
+                tree=tree,
+                meta=new_meta,
+                comp_sorted=cs,
+                rid_sorted=rids[rs],
+                timings=timings,
+                stats=stats,
+                row_sorted=rs,
+                extract_bitmap=np.array(meta.dbitmap, np.uint32, copy=True),
+            ))
+        return out
+
+    def _stats(self, keyset, meta, comp_sorted, row_sorted, tree, fused_used=False):
         full_bits = keyset.n_bits
         # wcc over the *row*-permuted full keys (the tree's sorted_full):
         # row_sorted indexes rows of the table; rids are labels, not positions
@@ -581,7 +698,7 @@ class ReconstructionPipeline:
         stats = {
             "backend": self.backend.name,
             "device": str(self.device),
-            "fused": False,
+            "fused": fused_used,
             "n_keys": keyset.n,
             "full_key_bits": full_bits,
             "distinction_bits": meta.n_dbits,

@@ -20,8 +20,10 @@ A merge normalizes the pads of its two runs the same way, with row ids
 from two disjoint reserved ranges (``ROW_PAD_A`` for run a, ``ROW_PAD_B``
 for run b), so the chunked sort's merge ladder chains bucket-shaped runs
 from merge to merge.  ``tune_chunking`` measures the sort and merge costs
-that pick the ladder's chunk size and threshold.  The program counters
-wait for a later slice of the port (ROADMAP Queue 1 item 9).
+that pick the ladder's chunk size and threshold.
+``fused_extract_sort_padded`` is the fused path's bucketed extract+sort.
+The program cache and its counters (what a "program" and a "trace" are
+on this card) wait for a later slice of the port (ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ __all__ = [
     "pad_run",
     "sort_padded",
     "merge_padded",
+    "fused_extract_sort_padded",
     "adjacent_dpos_padded",
     "adjacent_dbitmap_padded",
     "ChunkPlan",
@@ -222,6 +225,43 @@ def merge_padded(
     if keep_padded:
         return km, rm
     return km[: na + nb], rm[: na + nb]
+
+
+def fused_extract_sort_padded(
+    words: torch.Tensor,
+    plan,
+    rows: torch.Tensor,
+    *,
+    n_valid: int | None = None,
+    keep_padded: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Bucketed extract+sort in one call (the ``"torch"`` backend's fused
+    path): the runtime-bitmap extraction under the plan's bitmap, then the
+    keyed sort.
+
+    All-ones pad keys extract to the all-ones compressed pattern, the
+    maximum any real key can compress to, since the slack bits of the
+    last compressed word are zero for every key; the reserved row range
+    breaks the tie, so pads still sort strictly last.  The pads are
+    normalized from the valid count before the extraction.
+    ``n_valid``/``keep_padded`` behave as in :func:`sort_padded`.
+    """
+    from .compress import extract_bits_dynamic, plan_bitmap
+    from .dbits import sort_words_keyed
+
+    if n_valid is None:
+        n = int(words.shape[0])
+        b = bucket_for("sort", n)
+        words = pad_tail(words, b, SENTINEL)
+        rows = pad_tail(rows, b, 0)
+    else:
+        n = int(n_valid)
+    wp, rp = _mask_run(words, rows, n, ROW_PAD_A)
+    comp = extract_bits_dynamic(wp, plan_bitmap(plan), plan.n_words_out)
+    ks, rs = sort_words_keyed(comp, rp)
+    if keep_padded:
+        return ks, rs
+    return ks[:n], rs[:n]
 
 
 def adjacent_dpos_padded(comp_sorted: torch.Tensor, *, n_valid: int | None = None) -> np.ndarray:

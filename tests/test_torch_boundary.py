@@ -34,6 +34,7 @@ from repro_torch.convert import tree_from_numpy  # noqa: E402
 from repro_torch.core.btree import BTreeConfig, _as_stack, stack_trees  # noqa: E402
 from repro_torch.core.compress import make_plan  # noqa: E402
 from repro_torch.core.dbits import compute_dbitmap  # noqa: E402
+from repro_torch.core.index import OnlineIndex  # noqa: E402
 from repro_torch.core.keyformat import KeySet  # noqa: E402
 from repro_torch.core.metadata import meta_from_keys  # noqa: E402
 from repro_torch.core.pipeline import ReconstructionPipeline  # noqa: E402
@@ -100,7 +101,9 @@ print(json.dumps([names, bad]))
     for name in ("repro_torch.kernels.merge.ops", "repro_torch.kernels.merge.ref",
                  "repro_torch.kernels.dbit.ops", "repro_torch.kernels.dbit.ref",
                  "repro_torch.core.snapshot", "repro_torch.serve",
-                 "repro_torch.serve.tenants", "repro_torch.serve.loadgen"):
+                 "repro_torch.serve.tenants", "repro_torch.serve.loadgen",
+                 "repro_torch.core.index", "repro_torch.replication.log",
+                 "repro_torch.replication.wire"):
         assert name in names
     assert bad == []
 
@@ -136,7 +139,8 @@ def no_gpu(monkeypatch):
 @pytest.mark.parametrize("entry", [
     "pipeline_cuda", "pipeline_torch", "backend_cuda", "backend_torch",
     "reconstruct_index", "full_key_reconstruct", "meta_from_keys", "tree_from_numpy",
-    "run_multitenant_load", "multitenant_engine",
+    "run_multitenant_load", "multitenant_engine", "online_index_build", "online_index",
+    "run_many",
 ])
 def test_default_device_entry_points_raise_without_gpu(no_gpu, entry):
     ks = _keyset()
@@ -155,6 +159,9 @@ def test_default_device_entry_points_raise_without_gpu(no_gpu, entry):
                                                              duration_s=0.0),
         "multitenant_engine": lambda: MultiTenantEngine(TenantRegistry(), get_backend("cuda"),
                                                         auto_dispatch=False),
+        "online_index_build": lambda: OnlineIndex.build(ks),
+        "online_index": lambda: OnlineIndex(ks, reconstruct_index(ks, device="cpu")),
+        "run_many": lambda: ReconstructionPipeline().run_many([ks, ks]),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

@@ -532,3 +532,116 @@ def test_explicit_flush_engine_on_the_card(dev):
         assert found.all() and epoch == 0
         np.testing.assert_array_equal(rid, kss[t].rids[:50])
     eng.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# batched reconstruction (run_many) and the online index on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("b", [256, 512, 1024])
+@pytest.mark.parametrize("k", [3, 4, 5])
+def test_stacked_bitonic_launch_equals_member_sorts(dev, b, k):
+    """The stacked form ``run_many`` launches: k members of b rows, each
+    rounded up to whole 512-row blocks with all-ones keys and rows past
+    the pipeline's pad rows, sorted by one launch, equal the plain
+    network run on each member alone: no block straddles two members."""
+    n_pad = -(-b // 512) * 512
+    keys = torch.cat([plancache.pad_tail(to_carrier(_keys(b + k + i, b, 2, 0x000F000F), dev),
+                                         n_pad, plancache.SENTINEL) for i in range(k)])
+    rows = torch.cat([plancache.iota(b, dev),
+                      plancache.ROW_PAD_B + plancache.iota(n_pad, dev)[b:]]).repeat(k)
+    before = cudalib.LAUNCHES["bitonic_block_sort"]
+    got_k, got_r = block_sort(keys, rows, block=512)
+    assert cudalib.LAUNCHES["bitonic_block_sort"] == before + 1
+    for i in range(k):
+        part = slice(i * n_pad, (i + 1) * n_pad)
+        want_k, want_r = block_sort_plain(keys[part], rows[part], 512)
+        assert torch.equal(got_k[part], want_k) and torch.equal(got_r[part], want_r)
+        assert bool((got_r[part][b:] >= plancache.ROW_PAD_B).all())  # extras last
+
+
+@pytest.mark.parametrize("b", [256, 1024])
+def test_cuda_batched_extract_sort_equals_torch(dev, b):
+    """The pext kernel once per member and one bitonic launch over the
+    stack give the ``"torch"`` backend's runtime-bitmap extract and keyed
+    sort, member by member, pads last."""
+    k = 3
+    words_np = [_keys(60 + i, b - 5 * i, 3, 0x00FF0F0F) for i in range(k)]
+    bitmap = to_u32(compute_dbitmap(to_carrier(np.concatenate(words_np), dev)))
+    plan = make_plan(bitmap, 3)
+    words = torch.stack([plancache.pad_tail(to_carrier(x, dev), b, plancache.SENTINEL)
+                         for x in words_np])
+    rows = torch.stack([torch.cat([plancache.iota(x.shape[0], dev),
+                                   plancache.ROW_PAD_A + plancache.iota(b - x.shape[0], dev)])
+                        for x in words_np])
+    bitmaps = to_carrier(np.stack([bitmap] * k), dev)
+    before = dict(cudalib.LAUNCHES)
+    got = get_backend("cuda", device=dev).batched_extract_sort(words, bitmaps, rows, [plan] * k)
+    assert cudalib.LAUNCHES["pext"] == before["pext"] + k
+    assert cudalib.LAUNCHES["bitonic_block_sort"] == before["bitonic_block_sort"] + 1
+    want = get_backend("torch", device=dev).batched_extract_sort(words, bitmaps, rows,
+                                                                 [plan] * k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert bool((got[1][1:, -5:] >= plancache.ROW_PAD_A).all())  # member 0 has no pads
+
+
+def _results_match(got, want):
+    for name in ("comp_sorted", "row_sorted", "rid_sorted"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    for key, val in want.tree.leaf.items():
+        assert torch.equal(got.tree.leaf[key], val), key
+    for g, r in zip(got.tree.levels, want.tree.levels):
+        for key, val in r.items():
+            assert torch.equal(g[key], val), key
+    assert torch.equal(got.tree.sorted_full, want.tree.sorted_full)
+    for field in ("dbitmap", "varbitmap", "refkey"):
+        np.testing.assert_array_equal(getattr(got.meta, field), getattr(want.meta, field))
+
+
+def test_run_many_on_the_card_equals_single_runs_and_torch(dev):
+    rng = np.random.default_rng(3)
+    sets = [rows_to_keyset(rng.integers(97, 123, size=(n, 16), dtype=np.uint8))
+            for n in (3000, 2900, 2500, 700)]
+    pipe = ReconstructionPipeline(backend="cuda", device=dev)
+    cudalib.reset_launches()
+    got = pipe.run_many(sets)
+    # three batched members and one of another bucket through run
+    assert cudalib.LAUNCHES["pext"] == 4 and cudalib.LAUNCHES["bitonic_block_sort"] == 2
+    assert [r.stats.get("batched") for r in got] == [3, 3, 3, None]
+    want = ReconstructionPipeline(backend="torch", device=dev).run_many(sets)
+    for ks, g, w in zip(sets, got, want):
+        _results_match(g, w)
+        _results_match(g, pipe.run(ks))
+
+
+def test_online_index_on_the_card_equals_torch(dev):
+    """Inserts, deletes, searches and the rebuild of a few thousand keys:
+    the ``"cuda"`` index equals the ``"torch"`` one, meta after every
+    mutation included."""
+    from repro_torch.core.index import OnlineIndex
+
+    rng = np.random.default_rng(4)
+    ks = rows_to_keyset(np.unique(rng.integers(97, 123, size=(4000, 16), dtype=np.uint8),
+                                  axis=0))
+    fresh = rows_to_keyset(rng.integers(97, 123, size=(300, 16), dtype=np.uint8)).words
+    idx = {name: OnlineIndex.build(ks, backend=name, device=dev) for name in ("cuda", "torch")}
+    before = cudalib.LAUNCHES["probe"]
+    for i, key in enumerate(fresh):
+        for oi in idx.values():
+            oi.insert(key, 100_000 + i)
+        np.testing.assert_array_equal(idx["cuda"].meta.dbitmap, idx["torch"].meta.dbitmap)
+    for key in list(ks.words[::40]) + list(fresh[::7]):
+        assert idx["cuda"].delete(key) == idx["torch"].delete(key)
+    assert cudalib.LAUNCHES["probe"] > before  # the deletes' searches
+    queries = np.concatenate([ks.words[::13], fresh, fresh ^ np.uint32(1)])
+    got, want = idx["cuda"].search_batch(queries), idx["torch"].search_batch(queries)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert got[0].any() and not got[0].all()
+    rebuilt = {name: oi.rebuild() for name, oi in idx.items()}
+    _results_match(rebuilt["cuda"].result, rebuilt["torch"].result)
+    full = ReconstructionPipeline(backend="cuda", device=dev).run(
+        rebuilt["cuda"].keyset, meta=idx["cuda"].meta)
+    for name in ("comp_sorted", "row_sorted", "rid_sorted"):
+        assert torch.equal(getattr(rebuilt["cuda"].result, name), getattr(full, name))

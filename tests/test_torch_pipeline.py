@@ -262,7 +262,8 @@ def test_reference_lookup_on_port_tree(backend):
 
 
 # ---------------------------------------------------------------------------
-# what this slice does not do raises instead of running something else
+# the registry, the chunked path, the merge op, the fused and batched ops
+# and run_incremental
 # ---------------------------------------------------------------------------
 
 
@@ -301,8 +302,41 @@ def test_merge_sorted_backend_op_matches_reference(backend):
 @pytest.mark.parametrize("op", ["fused_extract_sort", "batched_extract_sort"])
 @pytest.mark.parametrize("backend", PORT_BACKENDS)
 def test_later_slice_backend_ops_raise(op, backend):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(get_backend(backend, device="cpu"), op)()
+    """The fused and batched extract+sort ops (once raising, now ported)
+    equal the reference's on the same inputs; ``"cuda"`` has no fused
+    path and raises the reference's error, as ``pallas`` does."""
+    from repro.core.metadata import meta_from_keys as r_meta_from_keys
+    from repro.core.plancache import ROW_PAD_A
+    from repro_torch.core.compress import make_plan
+
+    words = _words("dup_255_3")
+    rmeta = r_meta_from_keys(words)
+    plan = make_plan(rmeta.dbitmap, rmeta.n_words)
+    be = get_backend(backend, device="cpu")
+    if op == "fused_extract_sort":
+        rows = np.arange(255, dtype=np.uint32)
+        if backend == "cuda":
+            with pytest.raises(NotImplementedError, match="no fused path"):
+                be.fused_extract_sort(to_carrier(words, "cpu"), plan, to_carrier(rows, "cpu"))
+            return
+        want = r_get_backend("jnp").fused_extract_sort(jnp.asarray(words), rmeta.plan(),
+                                                       jnp.asarray(rows))
+        got = be.fused_extract_sort(to_carrier(words, "cpu"), plan, to_carrier(rows, "cpu"))
+    else:
+        # two members padded to the 256 bucket as run_many pads them
+        stack = np.stack([np.concatenate([words[:n], np.full((256 - n, 3), 0xFFFFFFFF,
+                                                             np.uint32)])
+                          for n in (255, 250)])
+        rows = np.stack([np.concatenate([np.arange(n, dtype=np.uint32),
+                                         ROW_PAD_A + np.arange(256 - n, dtype=np.uint32)])
+                         for n in (255, 250)])
+        bitmaps = np.stack([rmeta.dbitmap] * 2)
+        want = r_get_backend("jnp").batched_extract_sort(
+            jnp.asarray(stack), jnp.asarray(bitmaps), jnp.asarray(rows), [rmeta.plan()] * 2)
+        got = be.batched_extract_sort(to_carrier(stack, "cpu"), to_carrier(bitmaps, "cpu"),
+                                      to_carrier(rows, "cpu"), [plan] * 2)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(to_u32(g), np.asarray(w))
 
 
 def test_run_incremental_runs_and_matches_reference():
@@ -328,9 +362,15 @@ def test_run_incremental_runs_and_matches_reference():
 
 @pytest.mark.parametrize("method", ["run_many"])
 def test_later_slice_pipeline_methods_raise(method):
-    pipe = ReconstructionPipeline(backend="torch", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(pipe, method)()
+    """``run_many`` (once raising, now ported) equals the reference's
+    ``run_many`` member by member: two members of one bucket batch."""
+    sets = [_keysets(_words("dup_255_3")), _keysets(_words("dup_257_3")[:250], seed=1)]
+    refs = getattr(RPipeline(backend="jnp"), method)([r for r, _ in sets])
+    got = getattr(ReconstructionPipeline(backend="torch", device="cpu"), method)(
+        [t for _, t in sets])
+    for res, ref in zip(got, refs):
+        assert res.stats["batched"] == ref.stats["batched"] == 2
+        _assert_results_equal(res, ref)
 
 
 def test_fold_keyset_matches_reference():
