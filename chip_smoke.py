@@ -92,8 +92,27 @@ device or any phase fails:
    ``meta_from_keys``, then ``run``); each member equal to its single run
    and to the ``"torch"`` backend's ``run_many``; the batched wall against
    the single runs' (at the pipeline's defaults and unchunked);
-11. kernel report: each kernel's launches on the main paths (phases 3, 5,
-   6, 7, 8, 9 and 10, each counted from 0), its device time at the main path's
+11. replication: phase 3's keys as the base table of a ``StreamPrimary``
+   on ``"cuda"`` over a ``DirectoryTransport`` (frames fsynced on disk,
+   under a temporary directory that is removed at the end) with bounded
+   lag 2, so it checkpoints and truncates after batches 2 and 5 (a full
+   step, then a delta step chained onto it); six batches of 10,000 fresh
+   Zipf inserts (seed ``seed+31``) and 10,000 deletes of live rids, batch
+   4 with ten new-bit keys (one fallback resort).  A ``"cuda"`` tail and
+   a ``"torch"`` tail poll after every batch; a ``"cuda"`` lagger first
+   polls after batch 6, finds its start truncated, bootstraps from the
+   checkpoint at the stream's start (the index recovery at 10M keys) and
+   drains the rest frame by frame.  The tail and the lagger equal the
+   primary byte for byte, the tail equals the ``"torch"`` tail, each
+   equals a full ``"cuda"`` run over its keyset, one 2^18-query batch
+   answers alike on all of them, and ``restore_checkpoint`` of step 2 (a
+   delta step) returns the primary's state there.  Each apply's wall and
+   path, the checkpoint writes, the lagger's restore and rebuild, the
+   checkpoint bytes and the peak device memory are printed.  Then one
+   chaos soak (``repro_torch.tools.chaos_soak``) on ``"cuda"`` over a
+   directory spool keeps every invariant;
+12. kernel report: each kernel's launches on the main paths (phases 3, 5,
+   6, 7, 8, 9, 10 and 11, each counted from 0), its device time at the main path's
    shapes (and its time per call, host launch included), its plain
    version's time and the least time the card could take for the same
    bytes and operations; pk-window beside the plain gather of the same
@@ -162,6 +181,12 @@ from repro_torch.kernels.merge import merge_ranks, merge_ranks_plain  # noqa: E4
 from repro_torch.kernels.merge import ops as merge_ops  # noqa: E402
 from repro_torch.kernels.pext import pext, pext_plain  # noqa: E402
 from repro_torch.kernels.pext.ops import segment_plan  # noqa: E402
+from repro_torch.ckpt import restore_checkpoint  # noqa: E402
+from repro_torch.replication import (  # noqa: E402
+    ChangeLog, DirectoryTransport, StreamPrimary, StreamReplica)
+from repro_torch.replication import replica as replica_mod  # noqa: E402
+from repro_torch.replication.stream import _state_like  # noqa: E402
+from repro_torch.tools.chaos_soak import run_soak  # noqa: E402
 from repro_torch.serve import MultiTenantEngine, TenantRegistry  # noqa: E402
 from repro_torch.serve.loadgen import run_multitenant_load  # noqa: E402
 
@@ -184,6 +209,13 @@ ONLINE_REINSERTS = 100
 #: bucket, at the default --n-keys
 MANY_SIZES = (2_090_000, 2_060_000, 2_030_000, 2_000_000)
 MANY_OTHER = 300_000
+#: replication: batches published, inserts and deletes each, the batch
+#: that also inserts the new-bit keys, and the primary's bounded lag
+REPL_BATCHES = 6
+REPL_INSERTS = 10_000
+REPL_DELETES = 10_000
+REPL_NEW_BIT_BATCH = 4
+REPL_MAX_LAG = 2
 
 #: kernel -> (CUDA source, the TPU kernel it replaces)
 KERNELS = {
@@ -209,6 +241,7 @@ PATH_KERNELS = {
                 "probe_many"),
     "online": ("pext", "bitonic_block_sort", "merge_rank", "pk_window", "dbit", "probe"),
     "run_many": ("pext", "bitonic_block_sort", "pk_window", "dbit"),
+    "replication": ("pext", "bitonic_block_sort", "merge_rank", "pk_window", "dbit", "probe"),
 }
 
 
@@ -1369,6 +1402,234 @@ def run_many_phase(args, dev, rng, launches: dict) -> dict:
     return {"line": line, "stacked": stacked, "sizes": [ks.n for ks in sets[:group]]}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: replication and index recovery
+# ---------------------------------------------------------------------------
+
+@contextmanager
+def apply_log():
+    """Record every ``Replica.apply`` made inside the block: the replica,
+    its wall (ended by a synchronize) and its path."""
+    seen: list = []
+    orig = replica_mod.Replica.apply
+
+    def spy(self, log):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        st = orig(self, log)
+        torch.cuda.synchronize()
+        path = "noop" if st["noop"] else st["fallback"] or "incremental"
+        seen.append((self, {"wall_s": time.perf_counter() - t1, "path": path,
+                            "n_delta": st["n_delta"], "n_deleted": st["n_deleted"],
+                            "applied_lsn": st["applied_lsn"],
+                            "timings_s": {k: st["timings"].get(k, 0.0)
+                                          for k in ("filter", "extract", "sort", "merge",
+                                                    "build", "refresh_meta", "total")}}))
+        return st
+
+    replica_mod.Replica.apply = spy
+    try:
+        yield seen
+    finally:
+        replica_mod.Replica.apply = orig
+
+
+def replicas_equal(got, want, what: str) -> None:
+    """Byte identity of two replicas: keyset, working meta, watermark, and
+    the standing result (sorted run, permutations, tree, refreshed meta)."""
+    for name in ("words", "rids", "lengths"):
+        check(np.array_equal(getattr(got.keyset, name), getattr(want.keyset, name)),
+              f"{what}: keyset.{name} differs")
+    for field in ("dbitmap", "varbitmap", "refkey"):
+        check(np.array_equal(getattr(got.meta, field), getattr(want.meta, field)),
+              f"{what}: meta.{field} differs")
+    check(got.applied_lsn == want.applied_lsn,
+          f"{what}: applied_lsn {got.applied_lsn} != {want.applied_lsn}")
+    results_equal(got.result, want.result, what)
+
+
+def dir_bytes(root: Path) -> int:
+    return sum(f.stat().st_size for f in root.rglob("*") if f.is_file())
+
+
+def replication_phase(args, dev, rng, keyset, launches: dict) -> dict:
+    """Phase 11: phase 3's keys as the base table of a ``StreamPrimary``
+    on ``"cuda"`` over a ``DirectoryTransport`` (frames fsynced on disk)
+    with bounded lag 2, so it checkpoints with truncation after batches 2
+    and 5 (a full step, then a delta step chained onto it).  Six batches
+    of 10,000 fresh Zipf inserts (seed ``seed+31``) and 10,000 deletes of
+    live rids; batch 4 also inserts ten new-bit keys (the fallback
+    resort).  A ``"cuda"`` tail and a ``"torch"`` tail poll after every
+    batch; a ``"cuda"`` lagger first polls after batch 6, finds its start
+    truncated, bootstraps from the checkpoint at the stream's start and
+    drains the rest frame by frame.  The path (publishes, polls, the
+    lagger's recovery, the batch lookups and the restore of step 2) is
+    counted from 0.  Then one chaos soak on ``"cuda"`` over a directory
+    spool."""
+    n = keyset.n
+    t0 = time.perf_counter()
+    need = REPL_BATCHES * REPL_INSERTS
+    dk = zipf_keys(ZipfConfig(1.5, 64, 0, 6 * need), seed=args.seed + 31)
+    fresh = np.flatnonzero(~rows_in(dk.words, keyset.words))
+    check(fresh.size >= need, f"only {fresh.size} fresh keys for {need} replication inserts")
+    ins_words = dk.words[fresh[rng.permutation(fresh.size)[:need]]]
+    new_bits = new_bit_keys(keyset.words, rng, ONLINE_NEW_BITS)
+    del dk, fresh
+    data_s = time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    acc: dict = {}
+    walls: dict = {"checkpoint_s": []}
+    with tempfile.TemporaryDirectory(prefix="repro_replication_") as tmp, apply_log() as applies:
+        root = Path(tmp)
+        with counted(acc):
+            t1 = time.perf_counter()
+            prim = StreamPrimary(DirectoryTransport(root / "spool"), keyset, backend="cuda",
+                                 device=dev, ckpt_dir=str(root / "ckpt"),
+                                 max_lag_batches=REPL_MAX_LAG)
+            walls["primary_bring_up_s"] = time.perf_counter() - t1
+        orig_ckpt = prim.checkpoint
+
+        def timed_checkpoint(truncate=False):
+            t1 = time.perf_counter()
+            man = orig_ckpt(truncate=truncate)
+            walls["checkpoint_s"].append(time.perf_counter() - t1)
+            return man
+
+        prim.checkpoint = timed_checkpoint
+        tail = StreamReplica(DirectoryTransport(root / "spool"), backend="cuda", device=dev)
+        twin = StreamReplica(DirectoryTransport(root / "spool"), backend="torch", device=dev)
+        lagger = StreamReplica(DirectoryTransport(root / "spool"), backend="cuda", device=dev)
+        t1 = time.perf_counter()
+        with counted(acc):
+            tail.poll()
+        walls["tail_bring_up_s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        twin.poll()
+        walls["torch_tail_bring_up_s"] = time.perf_counter() - t1
+        step2 = None
+        next_rid = n
+        for b in range(1, REPL_BATCHES + 1):
+            cur = prim.replica.keyset
+            log = ChangeLog(keyset.n_words, start_lsn=prim.next_lsn)
+            words = ins_words[(b - 1) * REPL_INSERTS : b * REPL_INSERTS]
+            if b == REPL_NEW_BIT_BATCH:
+                words = np.concatenate([words, new_bits])
+            log.append_inserts(words, np.arange(next_rid, next_rid + words.shape[0]))
+            next_rid += words.shape[0]
+            log.append_deletes(rng.choice(cur.rids, REPL_DELETES, replace=False))
+            with counted(acc):
+                prim.publish(log)
+                tail.poll()
+            twin.poll()
+            if prim.stats["ckpt_step"] == 2 and step2 is None:
+                step2 = (prim.replica.keyset, prim.replica.meta, prim.replica.applied_lsn)
+        check(prim.stats["ckpt_step"] == 2 and step2 is not None,
+              f"the primary checkpointed {prim.stats['ckpt_step']} times, not twice")
+        ckpt_bytes = {p.name: dir_bytes(p) for p in sorted((root / "ckpt").iterdir())}
+        spool_bytes = dir_bytes(root / "spool")
+        first_pos = DirectoryTransport(root / "spool").first_pos()
+        check(first_pos > 0, "the spool was never truncated")
+
+        # the lagger: truncated past, it recovers from the checkpoint
+        t1 = time.perf_counter()
+        with counted(acc):
+            st = lagger.poll(max_frames=1)
+            walls["lagger_bootstrap_poll_s"] = time.perf_counter() - t1
+            check(st["catchup"] and st["truncated_jump"], f"the lagger did not catch up: {st}")
+            polls = 1
+            t1 = time.perf_counter()
+            while lagger.lag_frames():
+                lagger.poll(max_frames=1)
+                polls += 1
+            walls["lagger_drain_s"] = time.perf_counter() - t1
+        walls["lagger_bootstrap"] = lagger.last_bootstrap
+        check(lagger.stats["n_catchups"] == 1 and tail.stats["n_catchups"] == 0
+              and twin.stats["n_catchups"] == 0, "a replica took the wrong recovery path")
+
+        # byte identity: tail == lagger == primary, cuda tail == torch tail
+        replicas_equal(tail.replica, prim.replica, "cuda tail vs primary")
+        replicas_equal(lagger.replica, prim.replica, "lagger vs primary")
+        replicas_equal(tail.replica, twin.replica, "cuda tail vs torch tail")
+        pipe = ReconstructionPipeline(backend="cuda", device=dev)
+        for what, rep in (("primary", prim.replica), ("cuda tail", tail.replica),
+                          ("torch tail", twin.replica), ("lagger", lagger.replica)):
+            full = pipe.run(rep.keyset, meta=rep.meta)
+            results_equal(rep.result, full, f"{what} vs a full cuda run over its keyset")
+        del full
+
+        # one 2^18-query batch, half hits and half misses, on every replica
+        live = prim.replica.keyset
+        q_np, expect = make_queries(live.words, rng, rids=live.rids)
+        answers = {}
+        with counted(acc):
+            for what, rep in (("primary", prim.replica), ("cuda tail", tail),
+                              ("lagger", lagger)):
+                answers[what] = rep.search_batch(q_np)
+        answers["torch tail"] = twin.search_batch(q_np)
+        for what, (found, rid) in answers.items():
+            check(np.array_equal(found, expect != NOT_FOUND_RID) and np.array_equal(rid, expect),
+                  f"replication: the {what} answers a lookup wrong")
+
+        # index recovery straight from the chain: step 2 (a delta step)
+        t1 = time.perf_counter()
+        with counted(acc):
+            state, rst = restore_checkpoint(root / "ckpt", 2, _state_like(), backend="cuda",
+                                            index_device=dev)
+        restore_s = time.perf_counter() - t1
+        s_keyset, s_meta, s_lsn = step2
+        check(np.array_equal(state["keyset"]["words"], s_keyset.words)
+              and np.array_equal(state["keyset"]["rids"], s_keyset.rids)
+              and np.array_equal(state["keyset"]["lengths"], s_keyset.lengths)
+              and np.array_equal(state["meta"]["dbitmap"], s_meta.dbitmap)
+              and np.array_equal(state["meta"]["varbitmap"], s_meta.varbitmap)
+              and rst["meta"]["applied_lsn"] == s_lsn,
+              "restore_checkpoint of step 2 differs from the primary's state there")
+        launches["replication"] = acc
+        check_launches("replication", acc)
+        peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+        by_rep = {id(prim.replica): "primary", id(tail.replica): "cuda_tail",
+                  id(twin.replica): "torch_tail", id(lagger.replica): "lagger"}
+        apply_lines = [{"replica": by_rep.get(id(r), "other"), **line} for r, line in applies]
+        paths = {name: [a["path"] for a in apply_lines if a["replica"] == name]
+                 for name in ("primary", "cuda_tail", "torch_tail", "lagger")}
+        # fresh keys may set new bits too; the new-bit batch always does
+        check(paths["primary"] == paths["cuda_tail"] == paths["torch_tail"]
+              and paths["lagger"] == paths["primary"][REPL_MAX_LAG:]
+              and paths["primary"][REPL_NEW_BIT_BATCH - 1] == "dbitmap_changed"
+              and "incremental" in paths["primary"],
+              f"the replicas took other apply paths: {paths}")
+        del state, answers
+        tail_stats, lagger_stats = tail.stats, lagger.stats
+        del prim, tail, twin, lagger, pipe
+
+    # one chaos soak on the card over a directory spool
+    t1 = time.perf_counter()
+    soak = run_soak(args.seed, "dir", "cuda", steps=8, n_replicas=2, device=dev)
+    soak_s = time.perf_counter() - t1
+    check(soak["violations"] == [], f"the chaos soak failed: {soak['violations']}")
+    line = {
+        "n_base": n, "batches": REPL_BATCHES, "inserts_per_batch": REPL_INSERTS,
+        "deletes_per_batch": REPL_DELETES, "new_bit_inserts": ONLINE_NEW_BITS,
+        "data_s": data_s, "walls_s": walls, "applies": apply_lines,
+        "restore_step2_s": restore_s, "restore_step2_incremental": rst["incremental"],
+        "restore_step2_index_rebuild_s": rst["index_rebuild_s"],
+        "ckpt_bytes_by_step": ckpt_bytes, "spool_bytes_at_end": spool_bytes,
+        "lagger_polls": polls, "lagger_stats": lagger_stats, "tail_stats": tail_stats,
+        "peak_mem_gib": peak_gib,
+        "soak": {"wall_s": soak_s, "faults": soak["faults_injected"],
+                 "survivors": soak["survivors"]},
+        "launches": acc, "card": card_line(),
+    }
+    print(f"[replication] {json.dumps(line)}", flush=True)
+    print("[replication] cuda tail == lagger (bootstrapped from the checkpoint) == primary; "
+          "cuda tail == torch tail; each == a full cuda run over its keyset; the 2^18 batch "
+          "answers alike; step 2 restores the primary's state; the soak kept every "
+          "invariant", flush=True)
+    return line
+
+
 def main(argv=None) -> int:
     """Run the phases on CUDA device 0."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1626,7 +1887,10 @@ def main(argv=None) -> int:
     # -- 10. run_many: four same-bucket key sets batched, a fifth alone ----------
     many = run_many_phase(args, dev, rng, launches)
 
-    # -- 11. kernel report at the main paths' shapes -----------------------------
+    # -- 11. replication: a primary, two tails and a recovering lagger ---------
+    replication_phase(args, dev, rng, keyset, launches)
+
+    # -- 12. kernel report at the main paths' shapes -----------------------------
     b = plancache.bucket(n)
     words_dev = plancache.pad_tail(to_carrier(keyset.words, dev), b, plancache.SENTINEL)
     plan = make_plan(res.extract_bitmap, keyset.n_words)

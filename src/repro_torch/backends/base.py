@@ -103,6 +103,10 @@ class ExecutionBackend(abc.ABC):
     #: ``dpos_fn(sorted_words) -> (n-1,)`` positions, for the build
     dbitmap_fn: Callable | None = None
     dpos_fn: Callable | None = None
+    #: the rank of (key, row) queries in an ascending (key, row) run (None:
+    #: the plain binary search): ``rank_fn(keys_q, rows_q, keys_s, rows_s)
+    #: -> (n_q,)`` int32, for the replica's insert rule
+    rank_fn: Callable | None = None
 
     def __init__(self, device=None) -> None:
         self.device = resolve_device(device)

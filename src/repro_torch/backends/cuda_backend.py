@@ -11,7 +11,8 @@
 * ``merge_sorted`` — the bucketed merge with the merge-rank kernel
   (``kernels/merge``) as the one rank pass of the smaller run in the
   larger, then the plain complement scatter, as the reference's pallas
-  backend does;
+  backend does; the same kernel is the ``rank_fn`` of the replica's
+  insert rule (the neighbors of a batch's keys in the standing run);
 * ``build`` — ``build_btree`` with the dbit kernel's positions form
   (``kernels/dbit``) as ``dpos_fn``, the leaf entries' D-bits, and the
   pk-window kernel's two forms (``kernels/build``): the leaf level's row
@@ -69,6 +70,7 @@ class CudaBackend(ExecutionBackend):
     supports_batched = True
     dbitmap_fn = staticmethod(adjacent_dbitmap)
     dpos_fn = staticmethod(adjacent_dbits)
+    rank_fn = staticmethod(merge.merge_ranks)
 
     def extract(self, words, plan: ExtractionPlan):
         return pext(words, plan)

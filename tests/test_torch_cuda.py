@@ -645,3 +645,72 @@ def test_online_index_on_the_card_equals_torch(dev):
         rebuilt["cuda"].keyset, meta=idx["cuda"].meta)
     for name in ("comp_sorted", "row_sorted", "rid_sorted"):
         assert torch.equal(getattr(rebuilt["cuda"].result, name), getattr(full, name))
+
+
+def test_insert_rule_rank_kernel_with_duplicate_keys(dev):
+    """The replica's insert rule on the card: the merge-rank kernel ranks
+    queries (row 0) in a run of sorted keys with many repeats, each with
+    its row id, and must give the reference's strict-key rank (zero rows
+    on both sides), queries equal to run keys, below and above it
+    included."""
+    from repro_torch.core.dbits import rank_in_sorted_keyed, sort_words_keyed
+
+    rng = np.random.default_rng(6)
+    for n, w in ((5000, 3), (1, 16), (700, 16)):
+        keys = to_carrier(rng.integers(0, 8, size=(n, w), dtype=np.uint32), dev)
+        run, rows = sort_words_keyed(keys, torch.randperm(n, device=dev))
+        q = torch.cat([run[torch.randint(0, n, (900,), device=dev)],
+                       to_carrier(rng.integers(0, 9, size=(300, w), dtype=np.uint32), dev)])
+        zq = torch.zeros((q.shape[0],), dtype=torch.int64, device=dev)
+        before = cudalib.LAUNCHES["merge_rank"]
+        got = merge_ranks(q, zq, run, rows)
+        assert cudalib.LAUNCHES["merge_rank"] == before + 1
+        want = rank_in_sorted_keyed(run, torch.zeros_like(rows), q, zq)
+        assert torch.equal(got, want)
+
+
+def test_replica_on_the_card_equals_torch(dev):
+    """A ``"cuda"`` replica and a ``"torch"`` one take the same batches —
+    duplicates of live keys and deletes, a key with a new distinction bit
+    (the fallback), two batches through ``apply_many`` — and hold the same
+    state and answers after each; the ``"cuda"`` insert rule launches the
+    merge-rank and dbit kernels."""
+    from repro_torch.replication import ChangeLog, Replica
+
+    rng = np.random.default_rng(8)
+    ks = rows_to_keyset(np.unique(rng.integers(97, 123, size=(6000, 16), dtype=np.uint8),
+                                  axis=0))
+    reps = {name: Replica(ks, backend=name, device=dev) for name in ("cuda", "torch")}
+    lsn = 0
+
+    def batch(n_ins, n_del, new_bit=False):
+        nonlocal lsn
+        cur = reps["torch"].keyset
+        log = ChangeLog(cur.n_words, start_lsn=lsn)
+        ins = cur.words[rng.integers(0, cur.n, n_ins)].copy()
+        if new_bit:
+            ins[:, -1] |= np.uint32(0x80)
+        log.append_inserts(ins, 50_000 + lsn + np.arange(n_ins))
+        log.append_deletes(rng.choice(cur.rids, n_del, replace=False))
+        lsn = log.next_lsn
+        return log
+
+    queries = ks.words[::7]
+    for step, kind in enumerate(("apply", "apply", "new_bit", "many")):
+        rank0, dbit0 = cudalib.LAUNCHES["merge_rank"], cudalib.LAUNCHES["dbit"]
+        if kind == "many":
+            logs = [batch(40, 10), batch(30, 5)]
+            stats = {name: rep.apply_many(logs) for name, rep in reps.items()}
+        else:
+            log = batch(50, 20, new_bit=kind == "new_bit")
+            stats = {name: rep.apply(log) for name, rep in reps.items()}
+        assert cudalib.LAUNCHES["merge_rank"] > rank0 and cudalib.LAUNCHES["dbit"] > dbit0
+        assert stats["cuda"]["fallback"] == stats["torch"]["fallback"]
+        assert (stats["cuda"]["fallback"] == "dbitmap_changed") == (kind == "new_bit")
+        a, b = reps["cuda"], reps["torch"]
+        for field in ("dbitmap", "varbitmap", "refkey"):
+            np.testing.assert_array_equal(getattr(a.meta, field), getattr(b.meta, field))
+        _results_match(a.result, b.result)
+        got, want = a.search_batch(queries), b.search_batch(queries)
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
