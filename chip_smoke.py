@@ -195,6 +195,8 @@ PEAK_BYTES_PER_S = 3.35e12
 #: H100 SXM 32-bit rate outside the tensor cores (NVIDIA data sheet, the
 #: float32 figure), for the operations bound of the kernels' integer work
 PEAK_OPS_PER_S = 67e12
+#: the default --n-keys: phase 3's Zipf index at full size
+FULL_N_KEYS = 10_000_000
 BATCH = 1 << 18
 N_BATCHES = 4
 N_TENANTS = 6
@@ -616,6 +618,31 @@ def largest_rank_pass():
         yield seen
     finally:
         merge_ops.merge_ranks = orig
+
+
+@contextmanager
+def largest_insert_rank():
+    """Record the largest ``rank_fn`` call of the ``"cuda"`` backend made
+    inside the block (by query plus searched rows), its inputs and its
+    output: the replica's insert rule, whose queries come unsorted, each
+    with row 0, against a standing run of the full index.  The call
+    itself runs unchanged."""
+    seen: dict = {}
+    orig = cuda_backend.CudaBackend.rank_fn
+
+    def spy(keys_q, rows_q, keys_s, rows_s):
+        out = orig(keys_q, rows_q, keys_s, rows_s)
+        seen["calls"] = seen.get("calls", 0) + 1
+        rows = int(keys_q.shape[0]) + int(keys_s.shape[0])
+        if rows > seen.get("rows", -1):
+            seen.update(rows=rows, args=(keys_q, rows_q, keys_s, rows_s), out=out)
+        return out
+
+    cuda_backend.CudaBackend.rank_fn = staticmethod(spy)
+    try:
+        yield seen
+    finally:
+        cuda_backend.CudaBackend.rank_fn = staticmethod(orig)
 
 
 @contextmanager
@@ -1306,7 +1333,7 @@ def many_sets(args, rng) -> list:
     Zipf(1.5, 64, 0) draw (seed ``seed+11``), four at drifting sizes
     inside one bucket (2.09M down to 2.0M keys at the default
     ``--n-keys``, scaled down with it) and a fifth of another bucket."""
-    scale = min(1.0, args.n_keys / 10_000_000)
+    scale = min(1.0, args.n_keys / FULL_N_KEYS)
     sizes = [int(s * scale) for s in MANY_SIZES] + [int(MANY_OTHER * scale)]
     zk = zipf_keys(ZipfConfig(1.5, 64, 0, sum(sizes) * 21 // 20), seed=args.seed + 11)
     check(zk.n >= sum(sizes), f"run_many: {zk.n} unique keys, fewer than {sum(sizes)}")
@@ -1481,7 +1508,8 @@ def replication_phase(args, dev, rng, keyset, launches: dict) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     acc: dict = {}
     walls: dict = {"checkpoint_s": []}
-    with tempfile.TemporaryDirectory(prefix="repro_replication_") as tmp, apply_log() as applies:
+    with (tempfile.TemporaryDirectory(prefix="repro_replication_") as tmp,
+          apply_log() as applies, largest_insert_rank() as ins_rank):
         root = Path(tmp)
         with counted(acc):
             t1 = time.perf_counter()
@@ -1588,18 +1616,36 @@ def replication_phase(args, dev, rng, keyset, launches: dict) -> dict:
               "restore_checkpoint of step 2 differs from the primary's state there")
         launches["replication"] = acc
         check_launches("replication", acc)
+        # the insert rule's largest kernel rank (unsorted queries, row 0,
+        # against the standing run) against the plain search on the same tensors
+        check("args" in ins_rank, "the insert rule never ranked through the merge-rank kernel")
+        kq, rq, ks, rs = ins_rank["args"]
+        check(torch.equal(ins_rank["out"].to(torch.int64),
+                          merge_ranks_plain(kq, rq, ks, rs).to(torch.int64)),
+              "the insert rule's merge-rank call differs from merge_ranks_plain")
+        ins_rank_line = {"calls": ins_rank["calls"], "queries": int(kq.shape[0]),
+                         "searched": int(ks.shape[0]), "equal_to_plain": True}
+        del kq, rq, ks, rs
+        ins_rank.clear()
         peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
         by_rep = {id(prim.replica): "primary", id(tail.replica): "cuda_tail",
                   id(twin.replica): "torch_tail", id(lagger.replica): "lagger"}
         apply_lines = [{"replica": by_rep.get(id(r), "other"), **line} for r, line in applies]
         paths = {name: [a["path"] for a in apply_lines if a["replica"] == name]
                  for name in ("primary", "cuda_tail", "torch_tail", "lagger")}
-        # fresh keys may set new bits too; the new-bit batch always does
+        # the new-bit batch always falls back; at full size every other
+        # batch is incremental, while a scaled-down base (a quick call) is
+        # sparse enough that fresh keys may set new bits too
         check(paths["primary"] == paths["cuda_tail"] == paths["torch_tail"]
               and paths["lagger"] == paths["primary"][REPL_MAX_LAG:]
               and paths["primary"][REPL_NEW_BIT_BATCH - 1] == "dbitmap_changed"
               and "incremental" in paths["primary"],
               f"the replicas took other apply paths: {paths}")
+        if args.n_keys >= FULL_N_KEYS:
+            want = ["incremental"] * REPL_BATCHES
+            want[REPL_NEW_BIT_BATCH - 1] = "dbitmap_changed"
+            check(paths["primary"] == want,
+                  f"at full size the primary took {paths['primary']}, not {want}")
         del state, answers
         tail_stats, lagger_stats = tail.stats, lagger.stats
         del prim, tail, twin, lagger, pipe
@@ -1617,6 +1663,7 @@ def replication_phase(args, dev, rng, keyset, launches: dict) -> dict:
         "restore_step2_index_rebuild_s": rst["index_rebuild_s"],
         "ckpt_bytes_by_step": ckpt_bytes, "spool_bytes_at_end": spool_bytes,
         "lagger_polls": polls, "lagger_stats": lagger_stats, "tail_stats": tail_stats,
+        "insert_rule_rank": ins_rank_line,
         "peak_mem_gib": peak_gib,
         "soak": {"wall_s": soak_s, "faults": soak["faults_injected"],
                  "survivors": soak["survivors"]},
@@ -1633,7 +1680,7 @@ def replication_phase(args, dev, rng, keyset, launches: dict) -> dict:
 def main(argv=None) -> int:
     """Run the phases on CUDA device 0."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--n-keys", type=int, default=10_000_000)
+    ap.add_argument("--n-keys", type=int, default=FULL_N_KEYS)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=10, help="timed launches per kernel")
     ap.add_argument("--log-dir", type=Path, default=None,

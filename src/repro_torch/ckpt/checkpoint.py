@@ -61,7 +61,7 @@ import torch
 from repro_torch.core.keyformat import KeySet
 from repro_torch.core.metadata import DSMeta
 from repro_torch.core.pipeline import ReconstructionPipeline, ReconstructionResult
-from repro_torch.core.u32 import to_carrier
+from repro_torch.core.u32 import resolve_device, to_carrier
 
 __all__ = [
     "save_checkpoint",
@@ -147,6 +147,7 @@ def save_checkpoint(ckpt_dir: str | os.PathLike, step: int, tree,
     """
     from repro_torch.core.metadata import meta_from_keys
 
+    device = resolve_device(device)  # before any file is written
     root = Path(ckpt_dir)
     final = root / f"step_{step:08d}"
     tmp = root / f".tmp_step_{step:08d}"

@@ -66,6 +66,7 @@ import numpy as np
 
 from repro_torch.core.keyformat import KeySet
 from repro_torch.core.metadata import DSMeta
+from repro_torch.core.u32 import resolve_device
 
 from .log import ChangeLog
 from .replica import Replica
@@ -382,7 +383,7 @@ class StreamPrimary:
             )
         self.transport = transport
         self.backend = backend
-        self.device = device
+        self.device = resolve_device(device)
         self.shed_delete_frac = shed_delete_frac
         self.ckpt_dir = ckpt_dir
         self.max_lag_batches = max_lag_batches
@@ -639,7 +640,7 @@ class StreamReplica:
     ) -> None:
         self.transport = transport
         self.backend = backend
-        self.device = device
+        self.device = resolve_device(device)
         self.shed_delete_frac = shed_delete_frac
         self.pos = int(start_pos)
         self.reorder_window = int(reorder_window)

@@ -32,6 +32,7 @@ captured frames verify with standard tools.
 
 from __future__ import annotations
 
+import functools
 import struct
 from dataclasses import dataclass
 
@@ -97,8 +98,10 @@ def _make_table() -> list[int]:
 _TABLE = _make_table()
 
 
-#: payloads from this many bytes up take the chunk-parallel evaluation
-_PARALLEL_MIN = 1 << 16
+#: payloads from this many bytes up take the chunk-parallel evaluation:
+#: the smallest size from which it was faster than the byte loop at every
+#: larger size (``scripts/crc_crossover.py``; PERF.md gives the walls)
+_PARALLEL_MIN = 1 << 10
 #: how many chunks the parallel evaluation advances side by side
 _PARALLEL_CHUNKS = 1 << 14
 
@@ -147,6 +150,17 @@ def _slice4_tables() -> np.ndarray:
     return t
 
 
+_SLICE4 = _slice4_tables()
+
+
+@functools.lru_cache(maxsize=8)
+def _zeros_tables(n_bytes: int) -> tuple[list[int], ...]:
+    """The zeros map of ``n_bytes`` as four byte tables (one per byte of
+    the register); a chunk length recurs from frame to frame."""
+    zmap = _zeros_operator(n_bytes)
+    return tuple([_apply(zmap, v << (8 * j)) for v in range(256)] for j in range(4))
+
+
 def _crc_parallel(reg: int, data, n_chunks: int = _PARALLEL_CHUNKS) -> int:
     """The raw register after ``data``, with ``n_chunks`` equal chunks
     advanced side by side in numpy (four bytes a step, slicing-by-4) and
@@ -160,17 +174,14 @@ def _crc_parallel(reg: int, data, n_chunks: int = _PARALLEL_CHUNKS) -> int:
     k = n // size
     words = np.frombuffer(buf[: k * size], dtype="<u4").reshape(k, size // 4)
     cols = np.ascontiguousarray(words.T)
-    t = _slice4_tables()
-    t0, t1, t2, t3 = t[0], t[1], t[2], t[3]
+    t0, t1, t2, t3 = _SLICE4
     byte = np.uint32(0xFF)
     regs = np.zeros(k, np.uint32)
     for col in cols:
         c = regs ^ col
         regs = (t3[c & byte] ^ t2[(c >> np.uint32(8)) & byte]
                 ^ t1[(c >> np.uint32(16)) & byte] ^ t0[c >> np.uint32(24)])
-    zmap = _zeros_operator(size)
-    ztab = [[_apply(zmap, v << (8 * j)) for v in range(256)] for j in range(4)]
-    z0, z1, z2, z3 = ztab
+    z0, z1, z2, z3 = _zeros_tables(size)
     for r in regs.tolist():
         reg = (z0[reg & 0xFF] ^ z1[(reg >> 8) & 0xFF] ^ z2[(reg >> 16) & 0xFF]
                ^ z3[reg >> 24] ^ r)
@@ -180,8 +191,8 @@ def _crc_parallel(reg: int, data, n_chunks: int = _PARALLEL_CHUNKS) -> int:
 def crc32c(data: bytes, crc: int = 0) -> int:
     """CRC32C (Castagnoli) of ``data``; chainable via the ``crc`` seed.
 
-    Payloads of at least 64 KiB take the chunk-parallel evaluation; both
-    give the same value."""
+    Payloads of at least ``_PARALLEL_MIN`` bytes take the chunk-parallel
+    evaluation; both give the same value."""
     reg = crc ^ 0xFFFFFFFF
     if len(memoryview(data).cast("B")) >= _PARALLEL_MIN:
         reg = _crc_parallel(reg, data)

@@ -32,12 +32,13 @@ faults the schedule dealt.
 Usage::
 
     PYTHONPATH=src python -m repro_torch.tools.chaos_soak --seeds 0-7 \
-        --transports queue,dir --fast --backend torch   # the CPU smoke
+        --transports queue,dir --fast --backend torch --device cpu  # the CPU smoke
     PYTHONPATH=src python -m repro_torch.tools.chaos_soak --seeds 0-31 --soak
 
-``--backend cuda`` (the default) runs on the GPU; ``--backend torch``
-runs the plain oracle on the CPU unless ``--device`` names another
-device.  Exits non-zero if any run violates an invariant.
+Every index lives on the GPU unless ``--device`` names another device,
+whichever ``--backend`` (``cuda``, the default, or the plain ``torch``)
+runs; without a GPU and without ``--device cpu`` the soak raises.
+Exits non-zero if any run violates an invariant.
 """
 
 from __future__ import annotations
@@ -261,7 +262,7 @@ def main(argv: "list[str] | None" = None) -> int:
     ap.add_argument("--transports", default="queue,dir")
     ap.add_argument("--backend", choices=("cuda", "torch"), default="cuda")
     ap.add_argument("--device", default=None,
-                    help="default: cuda for --backend cuda, cpu for --backend torch")
+                    help="where every index lives (default: cuda; cpu runs on the host)")
     ap.add_argument("--steps", type=int, default=None,
                     help="chaos steps per run (default 12 fast / 40 soak)")
     ap.add_argument("--intensity", type=float, default=1.0,
@@ -274,7 +275,6 @@ def main(argv: "list[str] | None" = None) -> int:
                     help="dump the full per-run reports as JSON")
     args = ap.parse_args(argv)
 
-    device = args.device or ("cuda" if args.backend == "cuda" else "cpu")
     steps = args.steps or (40 if args.soak else 12 if args.fast else 24)
     n_replicas = 2 if args.fast else 3
     failures = 0
@@ -284,7 +284,7 @@ def main(argv: "list[str] | None" = None) -> int:
             rep = run_soak(
                 seed, kind.strip(), args.backend, None,
                 steps=steps, n_replicas=n_replicas,
-                intensity=args.intensity, device=device,
+                intensity=args.intensity, device=args.device,
             )
             reports.append(rep)
             ok = not rep["violations"]

@@ -30,6 +30,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.backends import get_backend  # noqa: E402
+from repro_torch.ckpt import CheckpointIndex, restore_checkpoint, save_checkpoint  # noqa: E402
 from repro_torch.convert import tree_from_numpy  # noqa: E402
 from repro_torch.core.btree import BTreeConfig, _as_stack, stack_trees  # noqa: E402
 from repro_torch.core.compress import make_plan  # noqa: E402
@@ -56,8 +57,15 @@ from repro_torch.kernels.lookup import (  # noqa: E402
 from repro_torch.kernels.lookup.ref import leaf_arena, member_tree  # noqa: E402
 from repro_torch.kernels.merge import merge_ranks, merge_ranks_plain, merge_sorted  # noqa: E402
 from repro_torch.kernels.pext import pext, pext_plain  # noqa: E402
+from repro_torch.replication import (  # noqa: E402
+    QueueTransport,
+    Replica,
+    StreamPrimary,
+    StreamReplica,
+)
 from repro_torch.serve import MultiTenantEngine, TenantRegistry  # noqa: E402
 from repro_torch.serve.loadgen import run_multitenant_load  # noqa: E402
+from repro_torch.tools import chaos_soak  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "src" / "repro_torch"
@@ -103,7 +111,11 @@ print(json.dumps([names, bad]))
                  "repro_torch.core.snapshot", "repro_torch.serve",
                  "repro_torch.serve.tenants", "repro_torch.serve.loadgen",
                  "repro_torch.core.index", "repro_torch.replication.log",
-                 "repro_torch.replication.wire"):
+                 "repro_torch.replication.wire", "repro_torch.replication.transport",
+                 "repro_torch.replication.replica", "repro_torch.replication.stream",
+                 "repro_torch.replication.supervisor", "repro_torch.replication.chaos",
+                 "repro_torch.ckpt", "repro_torch.ckpt.checkpoint",
+                 "repro_torch.tools.chaos_soak"):
         assert name in names
     assert bad == []
 
@@ -140,10 +152,14 @@ def no_gpu(monkeypatch):
     "pipeline_cuda", "pipeline_torch", "backend_cuda", "backend_torch",
     "reconstruct_index", "full_key_reconstruct", "meta_from_keys", "tree_from_numpy",
     "run_multitenant_load", "multitenant_engine", "online_index_build", "online_index",
-    "run_many",
+    "run_many", "replica", "stream_primary", "stream_primary_untracked", "stream_replica",
+    "save_checkpoint", "checkpoint_index", "restore_checkpoint", "run_soak", "chaos_soak_cli",
 ])
-def test_default_device_entry_points_raise_without_gpu(no_gpu, entry):
+def test_default_device_entry_points_raise_without_gpu(no_gpu, entry, tmp_path):
     ks = _keyset()
+    tree = {"w": np.arange(6, dtype=np.float32)}
+    save_checkpoint(tmp_path / "ckpt", 1, tree, device="cpu")
+    step_dir = tmp_path / "ckpt" / "step_00000001"
     calls = {
         "pipeline_cuda": lambda: ReconstructionPipeline(),
         "pipeline_torch": lambda: ReconstructionPipeline(backend="torch"),
@@ -162,9 +178,22 @@ def test_default_device_entry_points_raise_without_gpu(no_gpu, entry):
         "online_index_build": lambda: OnlineIndex.build(ks),
         "online_index": lambda: OnlineIndex(ks, reconstruct_index(ks, device="cpu")),
         "run_many": lambda: ReconstructionPipeline().run_many([ks, ks]),
+        "replica": lambda: Replica(ks),
+        "stream_primary": lambda: StreamPrimary(QueueTransport(), ks),
+        "stream_primary_untracked": lambda: StreamPrimary(QueueTransport(), n_words=3),
+        "stream_replica": lambda: StreamReplica(QueueTransport()),
+        "save_checkpoint": lambda: save_checkpoint(tmp_path / "ckpt", 2, tree),
+        "checkpoint_index": lambda: CheckpointIndex(step_dir),
+        "restore_checkpoint": lambda: restore_checkpoint(tmp_path / "ckpt", 1, tree),
+        "run_soak": lambda: chaos_soak.run_soak(0, "queue", "torch", str(tmp_path),
+                                                steps=2, n_replicas=1),
+        "chaos_soak_cli": lambda: chaos_soak.main(["--seeds", "0", "--transports", "queue",
+                                                   "--fast", "--backend", "torch"]),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
+    # a refused save leaves no step behind, not even a temporary one
+    assert sorted(p.name for p in (tmp_path / "ckpt").iterdir()) == ["step_00000001"]
 
 
 def test_explicit_cpu_device_runs_on_the_host(no_gpu):

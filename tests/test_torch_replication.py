@@ -482,6 +482,6 @@ def test_chaos_soak_cli(capsys):
     assert chaos_soak._parse_seeds("1,4,7") == [1, 4, 7]
     assert chaos_soak._parse_seeds("0-1,5") == [0, 1, 5]
     rc = chaos_soak.main(["--seeds", "0-1", "--transports", "queue,dir", "--fast",
-                          "--steps", "6", "--backend", "torch"])
+                          "--steps", "6", "--backend", "torch", "--device", "cpu"])
     out = capsys.readouterr().out
     assert rc == 0 and "4 runs, 0 failing" in out and "steady_traces" not in out

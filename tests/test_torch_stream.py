@@ -165,8 +165,9 @@ def _frames_equal(a, b):
 @pytest.mark.parametrize("n_ins", [5, 6000])
 def test_frames_cross_between_packages(n_ins):
     """Encoded by either package, decoded by both: equal frames, equal
-    headers.  6,000 inserts make a payload past 64 KiB (the port's
-    chunk-parallel CRC32C against the reference's byte loop)."""
+    headers.  6,000 inserts make a payload past 64 KiB, whose chunks
+    outgrow 4 bytes (the port's chunk-parallel CRC32C against the
+    reference's byte loop)."""
     for i, (rf, pf) in enumerate(_frame_pairs(n_ins)):
         for raw in (r_encode_frame(rf, seq=10 + i), encode_frame(pf, seq=10 + i)):
             if n_ins > 5 and i == 0:
@@ -181,7 +182,9 @@ def test_frames_cross_between_packages(n_ins):
 def test_crc32c_matches_reference_at_every_length():
     rng = np.random.default_rng(0)
     assert wire.crc32c(b"123456789") == 0xE3069283
-    for n in (0, 1, 3, 4, 5, 63, 1000, (1 << 16) - 1, 1 << 16, (1 << 16) + 7, 200_003):
+    lim = wire._PARALLEL_MIN
+    for n in (0, 1, 3, 4, 5, 63, 1000, lim - 1, lim, lim + 1, (1 << 16) - 1, 1 << 16,
+              (1 << 16) + 7, 200_003):
         data = rng.integers(0, 256, n, dtype=np.uint8).tobytes()
         assert wire.crc32c(data, crc=n) == rwire.crc32c(data, crc=n), n
         if n:  # the chunked evaluation at other chunk counts, small inputs included
