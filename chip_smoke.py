@@ -1634,7 +1634,7 @@ def replication_phase(args, dev, rng, keyset, launches: dict) -> dict:
         paths = {name: [a["path"] for a in apply_lines if a["replica"] == name]
                  for name in ("primary", "cuda_tail", "torch_tail", "lagger")}
         # the new-bit batch always falls back; at full size every other
-        # batch is incremental, while a scaled-down base (a quick call) is
+        # batch is incremental, while a base cut by a smaller --n-keys is
         # sparse enough that fresh keys may set new bits too
         check(paths["primary"] == paths["cuda_tail"] == paths["torch_tail"]
               and paths["lagger"] == paths["primary"][REPL_MAX_LAG:]
