@@ -111,8 +111,35 @@ device or any phase fails:
    checkpoint bytes and the peak device memory are printed.  Then one
    chaos soak (``repro_torch.tools.chaos_soak``) on ``"cuda"`` over a
    directory spool keeps every invariant;
-12. kernel report: each kernel's launches on the main paths (phases 3, 5,
-   6, 7, 8, 9, 10 and 11, each counted from 0), its device time at the main path's
+12. load: ``serve.loadgen.run_load`` on ``"cuda"`` at the reference
+   bench's key shape (two words, mask ``0x00FF0F0F``) with 2^22 draws
+   (about 4.19M keys after the dedupe): 8 reader threads, probe batches
+   of 256, a writer folding 1,024 redrawn keys per cycle through
+   ``run_incremental``, 5 s; the writer's first incremental result, made
+   before the readers start, equals a full ``"cuda"`` run over its folded
+   keyset and the ``"torch"`` backend's ``run_incremental`` on the same
+   inputs.  Then again at the reference's admission point (a writer
+   owing a cycle every 1 ms, lag bound 1, shed): both runs without a
+   torn read, stale epoch or error, at least 3 epochs, acquires equal to
+   releases, two readers pinned at once in the first, sheds in the
+   second; each run's ``to_row()``;
+13. pager: a ``"cuda"`` ``serve.pager.PagedKVManager`` of 2^17 pages of
+   16 tokens (the KV cache of a Llama-3.2-1B-sized model in 64 GiB)
+   filled with 4,000 sequences of 32 pages, beside a ``"torch"`` twin on
+   the same card, its journal shipped by a ``StreamPrimary`` over a
+   ``DirectoryTransport`` (under a temporary directory) to a ``"cuda"``
+   ``StreamReplica`` standby.  After the first build and each of 10
+   seeded churn rounds (``free_seq``, ``pages_for`` of 1 to 32 pages, a
+   re-alloc of a mapped slot, ``rebuild_index``) the pagers agree byte
+   for byte (table, free list, meta, tree, last rebuild), every mapped
+   page answers its physical page on both and on the standby and freed
+   pages miss; a quiet rebuild ships nothing.  Then ``run_pager_load``
+   at the same size (8 readers, 5 s): no torn read, stale epoch or
+   error.  Each rebuild's wall and path, the gets per second and the
+   percentiles are printed;
+14. kernel report: each kernel's launches on the main paths (phases 3, 5,
+   6, 7, 8, 9, 10, 11, 12 and 13, each counted from 0), its device time at the
+   main path's
    shapes (and its time per call, host launch included), its plain
    version's time and the least time the card could take for the same
    bytes and operations; pk-window beside the plain gather of the same
@@ -188,7 +215,8 @@ from repro_torch.replication import replica as replica_mod  # noqa: E402
 from repro_torch.replication.stream import _state_like  # noqa: E402
 from repro_torch.tools.chaos_soak import run_soak  # noqa: E402
 from repro_torch.serve import MultiTenantEngine, TenantRegistry  # noqa: E402
-from repro_torch.serve.loadgen import run_multitenant_load  # noqa: E402
+from repro_torch.serve.loadgen import run_load, run_multitenant_load, run_pager_load  # noqa: E402
+from repro_torch.serve.pager import PagedKVManager  # noqa: E402
 
 #: H100 SXM HBM3 rate (NVIDIA data sheet), for the bytes bound
 PEAK_BYTES_PER_S = 3.35e12
@@ -219,6 +247,16 @@ REPL_DELETES = 10_000
 REPL_NEW_BIT_BATCH = 4
 REPL_MAX_LAG = 2
 
+#: load: run_load's draws at full size (about 4.19M keys after the dedupe)
+LOAD_N_KEYS = 1 << 22
+#: pager: 2^17 pages of 16 tokens, filled with 4,000 sequences of 32 pages
+#: (3,072 free), and the churn rounds after the first build
+PAGER_PAGES = 1 << 17
+PAGER_TOKENS = 16
+PAGER_SEQS = 4000
+PAGER_SEQ_PAGES = 32
+PAGER_ROUNDS = 10
+
 #: kernel -> (CUDA source, the TPU kernel it replaces)
 KERNELS = {
     "pext": ("src/repro_torch/csrc/pext.cu", "src/repro/kernels/pext/kernel.py:35"),
@@ -244,6 +282,8 @@ PATH_KERNELS = {
     "online": ("pext", "bitonic_block_sort", "merge_rank", "pk_window", "dbit", "probe"),
     "run_many": ("pext", "bitonic_block_sort", "pk_window", "dbit"),
     "replication": ("pext", "bitonic_block_sort", "merge_rank", "pk_window", "dbit", "probe"),
+    "load": ("pext", "bitonic_block_sort", "merge_rank", "pk_window", "dbit", "probe"),
+    "pager": ("pext", "bitonic_block_sort", "merge_rank", "pk_window", "dbit", "probe"),
 }
 
 
@@ -1677,6 +1717,210 @@ def replication_phase(args, dev, rng, keyset, launches: dict) -> dict:
     return line
 
 
+# ---------------------------------------------------------------------------
+# phases 12-13: serving under rebuilds (run_load) and the page table
+# ---------------------------------------------------------------------------
+
+
+@contextmanager
+def first_incremental():
+    """Record the first ``ReconstructionPipeline.run_incremental`` call made
+    inside the block: its pipeline, arguments and result.  The call itself
+    runs unchanged."""
+    seen: dict = {}
+    orig = ReconstructionPipeline.run_incremental
+
+    def spy(self, prev, base_keyset, delta_keyset=None, **kw):
+        out = orig(self, prev, base_keyset, delta_keyset, **kw)
+        if not seen:
+            seen.update(args=(prev, base_keyset, delta_keyset), kw=kw, out=out)
+        return out
+
+    ReconstructionPipeline.run_incremental = spy
+    try:
+        yield seen
+    finally:
+        ReconstructionPipeline.run_incremental = orig
+
+
+def check_run_load(rep, what: str) -> None:
+    check(rep.errors == [], f"{what}: errors {rep.errors}")
+    check(rep.torn_reads == 0, f"{what}: {rep.torn_reads} torn reads")
+    check(rep.stale_epochs == 0, f"{what}: {rep.stale_epochs} stale epochs")
+    check(rep.epochs_published >= 3, f"{what}: {rep.epochs_published} epochs published")
+    st = rep.cell_stats
+    check(st["acquires"] == st["releases"] and st["pinned"] == 0,
+          f"{what}: {st['acquires']} acquires, {st['releases']} releases")
+
+
+def load_phase(args, dev, launches: dict) -> None:
+    """Phase 12: ``run_load`` on ``"cuda"`` at the reference bench's key
+    shape (two words) with 2^22 draws: 8 readers, probe batches of 256,
+    mutation batches of 1,024, 5 s; then again at the reference's
+    admission point (a writer owing a cycle every 1 ms, lag bound 1,
+    shed).  The path (both runs) is counted from 0.  The writer's first
+    incremental result, made before the reader threads start, equals a
+    full ``"cuda"`` run over its folded keyset and the ``"torch"``
+    backend's ``run_incremental`` on the same inputs."""
+    t_phase = time.perf_counter()
+    n_draws = min(LOAD_N_KEYS, args.n_keys)
+    opts = dict(backend="cuda", device=dev, n_keys=n_draws, n_words=2, batch=256,
+                n_readers=8, mutation_batch=1024, duration_s=5.0, seed=args.seed)
+    acc = launches.setdefault("load", {})
+    t0 = time.perf_counter()
+    with first_incremental() as first, counted(acc):
+        plain = run_load(**opts)
+    plain_wall = time.perf_counter() - t0
+    check_run_load(plain, "load")
+    check(plain.cell_stats["max_concurrent_pins"] >= 2, "load: never two readers pinned at once")
+    (prev, base, delta), kw = first["args"], first["kw"]
+    inc, folded = first["out"]
+    check(inc.stats["incremental"] is True, "load: the writer's first cycle fell back")
+    results_equal(inc, ReconstructionPipeline(backend="cuda", device=dev).run(
+        folded, meta=kw["meta"]), "load: first incremental vs a full run over the folded set")
+    results_equal(inc, ReconstructionPipeline(backend="torch", device=dev).run_incremental(
+        prev, base, delta, keep_rows=kw["keep_rows"], meta=kw["meta"])[0],
+        "load: first incremental, cuda vs torch")
+    n_keys = base.n
+    del first, prev, base, delta, inc, folded, kw
+    t0 = time.perf_counter()
+    with counted(acc):
+        shed = run_load(**opts, target_mutation_period_s=0.001, max_lag_epochs=1,
+                        admission="shed")
+    shed_wall = time.perf_counter() - t0
+    check_run_load(shed, "load at the admission point")
+    check(shed.n_shed > 0 and shed.cell_stats["shed"] == shed.n_shed,
+          f"load at the admission point: {shed.n_shed} sheds, "
+          f"{shed.cell_stats['shed']} in the cell")
+    check_launches("load", acc)
+    head = {"n_keys": n_keys, "draws": n_draws, "phase_s": time.perf_counter() - t_phase,
+            "wall_s": plain_wall}
+    print(f"[load] {json.dumps({**head, **plain.to_row()})}", flush=True)
+    print(f"[load] admission {json.dumps({'wall_s': shed_wall, **shed.to_row()})}", flush=True)
+    print(f"[load] launches {json.dumps(acc)}; the first incremental == a full cuda run == "
+          "torch; no torn read, no stale epoch, no error in either run; the admission "
+          f"point shed; {card_line()}", flush=True)
+
+
+def pagers_equal(got, want, what: str) -> None:
+    """Two pagers agree: table (in insertion order), free list, working
+    meta, last rebuild and, byte for byte, the built index."""
+    check(list(got._table.items()) == list(want._table.items()), f"{what}: tables differ")
+    check(got._free == want._free, f"{what}: free lists differ")
+    for field in ("dbitmap", "varbitmap", "refkey"):
+        check(np.array_equal(getattr(got._meta, field), getattr(want._meta, field)),
+              f"{what}: working meta.{field} differs")
+    check(got.stats["last_rebuild"] == want.stats["last_rebuild"],
+          f"{what}: last rebuild {got.stats['last_rebuild']} != {want.stats['last_rebuild']}")
+    results_equal(got._index, want._index, what)
+
+
+def check_gets(answer, table: dict, gone: np.ndarray, what: str) -> None:
+    """``answer(pairs) -> (found, rid)`` gives every mapped page its
+    physical page, and every pair of ``gone`` misses."""
+    keys = np.fromiter((v for k in table for v in k), np.uint32, 2 * len(table)).reshape(-1, 2)
+    found, rid = answer(np.concatenate([keys, gone]))
+    found, rid = np.asarray(found, bool), np.asarray(rid, np.uint32)
+    check(bool(found[:len(keys)].all()) and np.array_equal(
+        rid[:len(keys)], np.fromiter(table.values(), np.uint32, len(table))),
+        f"{what}: a mapped page answered wrong")
+    check(not found[len(keys):].any(), f"{what}: a freed page answered")
+
+
+def pager_phase(args, dev, launches: dict) -> None:
+    """Phase 13: a ``"cuda"`` ``PagedKVManager`` of 2^17 pages of 16 tokens
+    beside a ``"torch"`` twin on the same card, filled with 4,000
+    sequences of 32 pages, its journal shipped by a ``StreamPrimary``
+    over a ``DirectoryTransport`` (under a temporary directory) to a
+    ``"cuda"`` ``StreamReplica`` standby.  After the first build and after
+    each of 10 seeded churn rounds (``free_seq`` of a victim, ``pages_for``
+    of 1 to 32 of its pages again, the re-alloc of a mapped slot,
+    ``rebuild_index``) the two pagers agree byte for byte, one get of
+    every mapped page answers its physical page on both and on the
+    standby, and the freed pages miss.  A quiet rebuild ships nothing.
+    Then ``run_pager_load`` at the same size.  The ``"cuda"`` pager's
+    rebuilds and gets, the standby's polls and gets and the load run are
+    the path, counted from 0."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(args.seed + 41)
+    acc = launches.setdefault("pager", {})
+    opts = dict(n_pages=PAGER_PAGES, page_tokens=PAGER_TOKENS, device=dev)
+    tokens = PAGER_SEQ_PAGES * PAGER_TOKENS
+    rebuilds = []
+    with tempfile.TemporaryDirectory(prefix="repro_pager_") as tmp:
+        transport = DirectoryTransport(Path(tmp) / "spool")
+        pm = PagedKVManager(backend="cuda", **opts)
+        pm.attach_stream(StreamPrimary(transport, n_words=2, device=dev))
+        twin = PagedKVManager(backend="torch", **opts)
+        standby = StreamReplica(transport, backend="cuda", device=dev)
+        t0 = time.perf_counter()
+        for s in range(PAGER_SEQS):
+            pm.pages_for(s, tokens)
+        fill_s = time.perf_counter() - t0
+        for s in range(PAGER_SEQS):
+            twin.pages_for(s, tokens)
+        check(pm.stats["pages_free"] == PAGER_PAGES - PAGER_SEQS * PAGER_SEQ_PAGES,
+              f"the fill left {pm.stats['pages_free']} pages free")
+        gone = np.asarray([(PAGER_SEQS, 0), (0, PAGER_SEQ_PAGES)], np.uint32)
+        for r in range(PAGER_ROUNDS + 1):
+            what = f"pager round {r}"
+            if r:
+                victim = int(rng.integers(0, PAGER_SEQS))
+                back = int(rng.integers(1, PAGER_SEQ_PAGES + 1))
+                mapped = [k for k in pm._table if k[0] != victim]
+                slot = mapped[int(rng.integers(0, len(mapped)))]
+                for p in (pm, twin):
+                    p.free_seq(victim)
+                    p.pages_for(victim, back * PAGER_TOKENS)
+                    p.alloc(*slot)  # the re-alloc of a mapped slot
+                gone = np.asarray([(victim, p) for p in range(back, PAGER_SEQ_PAGES)]
+                                  + [(PAGER_SEQS, 0)], np.uint32)
+            with counted(acc):
+                t0 = time.perf_counter()
+                pm.rebuild_index()
+                wall = time.perf_counter() - t0
+            twin.rebuild_index()
+            pagers_equal(pm, twin, what)
+            with counted(acc):
+                check_gets(pm.lookup_batch, pm._table, gone, f"{what}, cuda gets")
+                t0 = time.perf_counter()
+                standby.poll()
+                poll_s = time.perf_counter() - t0
+                check_gets(standby.search_batch, pm._table, gone, f"{what}, standby")
+            check_gets(twin.lookup_batch, twin._table, gone, f"{what}, torch gets")
+            last = pm.stats["last_rebuild"]
+            rebuilds.append({"wall_s": wall, "path": "incremental" if last["incremental"]
+                             else (last["fallback"] or "first build"),
+                             "replayed": last["log_entries_replayed"],
+                             "standby_poll_s": poll_s})
+        before = transport.end()
+        pm.rebuild_index()
+        check(transport.end() == before, "a quiet rebuild shipped a frame")
+        check(standby.applied_lsn == pm._log.start_lsn - 1,
+              "the standby is not current through the journal")
+        del pm, twin, standby
+    with counted(acc):
+        load = run_pager_load(backend="cuda", device=dev, n_pages=PAGER_PAGES,
+                              page_tokens=PAGER_TOKENS, n_seqs=PAGER_SEQS,
+                              pages_per_seq=PAGER_SEQ_PAGES, n_readers=8, duration_s=5.0,
+                              seed=args.seed)
+    check(load["errors"] == [], f"pager load: errors {load['errors']}")
+    check(load["torn_reads"] == 0 and load["stale_epochs"] == 0,
+          f"pager load: {load['torn_reads']} torn reads, {load['stale_epochs']} stale epochs")
+    check(load["n_requests"] > 0 and load["epochs_published"] >= 2,
+          f"pager load: {load['n_requests']} requests, {load['epochs_published']} epochs")
+    check_launches("pager", acc)
+    line = {"pages": PAGER_PAGES, "page_tokens": PAGER_TOKENS, "seqs": PAGER_SEQS,
+            "pages_per_seq": PAGER_SEQ_PAGES, "phase_s": time.perf_counter() - t_phase,
+            "fill_s": fill_s, "rebuilds": rebuilds,
+            "load": {k: v for k, v in load.items() if k != "snapshot"}, "launches": acc}
+    print(f"[pager] {json.dumps(line)}", flush=True)
+    print("[pager] cuda pager == torch pager after the first build and each churn round "
+          "(table, free list, meta, tree, last rebuild); every mapped page answers on both "
+          "and on the standby, freed pages miss; a quiet rebuild ships nothing; the load "
+          f"run has no torn read, stale epoch or error; {card_line()}", flush=True)
+
+
 def main(argv=None) -> int:
     """Run the phases on CUDA device 0."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1937,7 +2181,13 @@ def main(argv=None) -> int:
     # -- 11. replication: a primary, two tails and a recovering lagger ---------
     replication_phase(args, dev, rng, keyset, launches)
 
-    # -- 12. kernel report at the main paths' shapes -----------------------------
+    # -- 12. load: reads racing incremental rebuilds, with and without shedding -
+    load_phase(args, dev, launches)
+
+    # -- 13. pager: the serving page table, its standby and its load run --------
+    pager_phase(args, dev, launches)
+
+    # -- 14. kernel report at the main paths' shapes -----------------------------
     b = plancache.bucket(n)
     words_dev = plancache.pad_tail(to_carrier(keyset.words, dev), b, plancache.SENTINEL)
     plan = make_plan(res.extract_bitmap, keyset.n_words)

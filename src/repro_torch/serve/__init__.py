@@ -1,6 +1,8 @@
-"""Serving on the port: multi-tenant arenas with fused cross-tenant reads
-(``tenants``) and the closed-loop load harness that verifies them
-(``loadgen``).  The reference's pager and LM engine are later slices."""
+"""Serving on the port: the paged KV-cache manager whose page index is a
+reconstructable B-tree (``pager``), multi-tenant arenas with fused
+cross-tenant reads (``tenants``), and the closed-loop load harnesses that
+verify reads racing rebuilds on both (``loadgen``).  The LM engine is a
+later slice."""
 
 from repro_torch.core.snapshot import (  # noqa: F401
     AdmissionShed,
@@ -9,7 +11,7 @@ from repro_torch.core.snapshot import (  # noqa: F401
     SnapshotPin,
 )
 
-from . import loadgen, tenants  # noqa: F401
+from . import loadgen, pager, tenants  # noqa: F401
 from .tenants import (  # noqa: F401
     Arena,
     MultiTenantEngine,
@@ -29,5 +31,6 @@ __all__ = [
     "SnapshotPin",
     "TenantRegistry",
     "loadgen",
+    "pager",
     "tenants",
 ]

@@ -64,7 +64,8 @@ from repro_torch.replication import (  # noqa: E402
     StreamReplica,
 )
 from repro_torch.serve import MultiTenantEngine, TenantRegistry  # noqa: E402
-from repro_torch.serve.loadgen import run_multitenant_load  # noqa: E402
+from repro_torch.serve.loadgen import run_load, run_multitenant_load, run_pager_load  # noqa: E402
+from repro_torch.serve.pager import PagedKVManager  # noqa: E402
 from repro_torch.tools import chaos_soak  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -110,6 +111,7 @@ print(json.dumps([names, bad]))
                  "repro_torch.kernels.dbit.ops", "repro_torch.kernels.dbit.ref",
                  "repro_torch.core.snapshot", "repro_torch.serve",
                  "repro_torch.serve.tenants", "repro_torch.serve.loadgen",
+                 "repro_torch.serve.pager",
                  "repro_torch.core.index", "repro_torch.replication.log",
                  "repro_torch.replication.wire", "repro_torch.replication.transport",
                  "repro_torch.replication.replica", "repro_torch.replication.stream",
@@ -126,6 +128,18 @@ def test_sources_name_neither_jax_nor_reference():
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if FORBIDDEN.search(f.read_text())]
     assert offenders == []
+
+
+def test_serving_modules_name_neither_jax_nor_reference_anywhere():
+    """The pager and the load harnesses name neither JAX's module nor the
+    reference package as code, not even in a docstring or comment."""
+    mention = re.compile(r"\b(?:import|from)\s+(?:jax|jaxlib|repro)\b(?!_)"
+                         r"|\bjax\.|(?<![\w.])repro\.")
+    for name in ("pager.py", "loadgen.py", "__init__.py"):
+        text = (PACKAGE / "serve" / name).read_text()
+        assert not mention.search(text), name
+    assert mention.search("see repro.serve.pager") and mention.search("x = jax.numpy")
+    assert not mention.search("see repro_torch.serve.pager")
 
 
 def test_forbidden_import_pattern():
@@ -154,6 +168,7 @@ def no_gpu(monkeypatch):
     "run_multitenant_load", "multitenant_engine", "online_index_build", "online_index",
     "run_many", "replica", "stream_primary", "stream_primary_untracked", "stream_replica",
     "save_checkpoint", "checkpoint_index", "restore_checkpoint", "run_soak", "chaos_soak_cli",
+    "paged_kv_manager", "run_load", "run_pager_load",
 ])
 def test_default_device_entry_points_raise_without_gpu(no_gpu, entry, tmp_path):
     ks = _keyset()
@@ -189,11 +204,26 @@ def test_default_device_entry_points_raise_without_gpu(no_gpu, entry, tmp_path):
                                                 steps=2, n_replicas=1),
         "chaos_soak_cli": lambda: chaos_soak.main(["--seeds", "0", "--transports", "queue",
                                                    "--fast", "--backend", "torch"]),
+        "paged_kv_manager": lambda: PagedKVManager(n_pages=8, page_tokens=4, backend="torch"),
+        "run_load": lambda: run_load(n_keys=64, duration_s=0.0),
+        "run_pager_load": lambda: run_pager_load(n_pages=8, n_seqs=1, pages_per_seq=1,
+                                                 duration_s=0.0),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
     # a refused save leaves no step behind, not even a temporary one
     assert sorted(p.name for p in (tmp_path / "ckpt").iterdir()) == ["step_00000001"]
+
+
+def test_serving_entry_points_default_to_cuda():
+    import dataclasses
+    import inspect
+
+    for fn in (run_load, run_pager_load, run_multitenant_load):
+        params = inspect.signature(fn).parameters
+        assert params["backend"].default == "cuda" and params["device"].default is None
+    fields = {f.name: f.default for f in dataclasses.fields(PagedKVManager)}
+    assert fields["backend"] == "cuda" and fields["device"] is None
 
 
 def test_explicit_cpu_device_runs_on_the_host(no_gpu):

@@ -714,3 +714,59 @@ def test_replica_on_the_card_equals_torch(dev):
         got, want = a.search_batch(queries), b.search_batch(queries)
         np.testing.assert_array_equal(got[0], want[0])
         np.testing.assert_array_equal(got[1], want[1])
+
+
+def test_pager_on_the_card_equals_torch(dev):
+    """A ``"cuda"`` pager and a ``"torch"`` one take the same fill and
+    churn rounds (free, partial re-fill, re-alloc of a mapped slot,
+    rebuild) and agree after each: table, free list, working meta, last
+    rebuild, index byte for byte, and a get of every mapped page."""
+    from repro_torch.serve.pager import PagedKVManager
+
+    pagers = {name: PagedKVManager(n_pages=8192, page_tokens=16, backend=name, device=dev)
+              for name in ("cuda", "torch")}
+    rng = np.random.default_rng(9)
+    for pm in pagers.values():
+        for s in range(200):
+            pm.pages_for(s, 16 * 32)
+    before = dict(cudalib.LAUNCHES)
+    for r in range(5):
+        if r:
+            victim, back = int(rng.integers(0, 200)), int(rng.integers(1, 33))
+            mapped = [k for k in pagers["cuda"]._table if k[0] != victim]
+            slot = mapped[int(rng.integers(0, len(mapped)))]
+            for pm in pagers.values():
+                pm.free_seq(victim)
+                pm.pages_for(victim, 16 * back)
+                pm.alloc(*slot)
+        for pm in pagers.values():
+            pm.rebuild_index()
+        a, b = pagers["cuda"], pagers["torch"]
+        assert list(a._table.items()) == list(b._table.items()) and a._free == b._free
+        assert a.stats["last_rebuild"] == b.stats["last_rebuild"]
+        for field in ("dbitmap", "varbitmap", "refkey"):
+            np.testing.assert_array_equal(getattr(a._meta, field), getattr(b._meta, field))
+        _results_match(a._index, b._index)
+        keys = np.asarray(list(a._table), np.uint32)
+        found, rid = a.lookup_batch(np.concatenate([keys, [[200, 0]]]))
+        assert found[:-1].all() and not found[-1]
+        np.testing.assert_array_equal(rid[:-1], np.fromiter(a._table.values(), np.uint32))
+    for name in ("pext", "bitonic_block_sort", "merge_rank", "pk_window", "dbit", "probe"):
+        assert cudalib.LAUNCHES[name] > before[name], name
+
+
+def test_run_load_on_the_card(dev):
+    """A short closed-loop run on ``"cuda"``: readers racing incremental
+    rebuilds, no torn read, no stale epoch, no error; the lookups launch
+    the probe kernel."""
+    from repro_torch.serve.loadgen import run_load
+
+    before = cudalib.LAUNCHES["probe"]
+    rep = run_load(backend="cuda", device=dev, n_keys=16384, n_words=2, batch=256,
+                   n_readers=4, duration_s=1.0, mutation_batch=64, seed=0)
+    assert rep.errors == []
+    assert rep.torn_reads == 0 and rep.stale_epochs == 0
+    assert rep.n_requests > 0 and rep.epochs_published >= 3
+    st = rep.cell_stats
+    assert st["acquires"] == st["releases"] and st["pinned"] == 0
+    assert cudalib.LAUNCHES["probe"] > before
