@@ -62,12 +62,23 @@ device or any phase fails:
    and to the ``"torch"`` backend's ``lookup_many``; then one explicit
    ``flush`` of a ``MultiTenantEngine`` answers all six tenants in one
    dispatch; the fused wall against the six per-tenant walls;
-8. mt_load: ``serve.loadgen.run_multitenant_load`` on ``"cuda"`` (8
+8. plancache: the lookup programs are CUDA graphs.  On phase 3's tree a
+   2^18-query and a 256-query batch replay byte for byte as their
+   program's body run eagerly; batches of 256, 249 and 200 queries (one
+   bucket) trace nothing; two ``run_incremental`` epochs of 10,000
+   deletes with the same keys re-inserted under new rids keep the
+   geometry, so each is a copy of the tree into the graph's buffers, not
+   a trace, and every answer is that epoch's; the same for
+   ``lookup_many`` on phase 7's arena (drift within the bucket, two
+   re-stacked arenas of one geometry); ``reset_cache`` gives the graphs'
+   memory back (within 1 %).  Eager and replay call times, the capture
+   time, the tree copy's time and the bytes a graph holds are printed;
+9. mt_load: ``serve.loadgen.run_multitenant_load`` on ``"cuda"`` (8
    tenants of 2^17 four-word keys, 8 readers, batches of 1024, mutation
    batches of 1024, 5 s), then again at the reference bench's SLO point
    (``target_p99_us`` = 4 x the unloaded p50): no torn read, no stale
-   epoch, no error, every tenant served;
-9. online: phase 3's 10M-key ``"cuda"`` result wrapped in an
+   epoch, no error, every tenant served, no warm trace;
+10. online: phase 3's 10M-key ``"cuda"`` result wrapped in an
    ``OnlineIndex`` beside a ``"torch"`` twin wrapping phase 3's plain
    result, the meta compared after every mutation.  Round 1: 1,000
    fresh inserts (990 drawn from the generator, seed ``seed+21``; ten
@@ -84,7 +95,7 @@ device or any phase fails:
    to the ``"torch"`` rebuild; µs per insert and delete, the batch with
    and without the overlay, each rebuild's wall and stages, the
    neighbor view's build and host bytes;
-10. run_many: five disjoint key sets of one Zipf(1.5, 64, 0) draw (seed
+11. run_many: five disjoint key sets of one Zipf(1.5, 64, 0) draw (seed
    ``seed+11``): four of 2.09M down to 2.0M keys in the 2^21 bucket that
    share their union's DS-metadata, as replicas of one index do (one
    group: a pext launch per member, one bitonic launch over the stack),
@@ -92,7 +103,7 @@ device or any phase fails:
    ``meta_from_keys``, then ``run``); each member equal to its single run
    and to the ``"torch"`` backend's ``run_many``; the batched wall against
    the single runs' (at the pipeline's defaults and unchunked);
-11. replication: phase 3's keys as the base table of a ``StreamPrimary``
+12. replication: phase 3's keys as the base table of a ``StreamPrimary``
    on ``"cuda"`` over a ``DirectoryTransport`` (frames fsynced on disk,
    under a temporary directory that is removed at the end) with bounded
    lag 2, so it checkpoints and truncates after batches 2 and 5 (a full
@@ -110,8 +121,8 @@ device or any phase fails:
    path, the checkpoint writes, the lagger's restore and rebuild, the
    checkpoint bytes and the peak device memory are printed.  Then one
    chaos soak (``repro_torch.tools.chaos_soak``) on ``"cuda"`` over a
-   directory spool keeps every invariant;
-12. load: ``serve.loadgen.run_load`` on ``"cuda"`` at the reference
+   directory spool keeps every invariant (no trace in its steady rounds);
+13. load: ``serve.loadgen.run_load`` on ``"cuda"`` at the reference
    bench's key shape (two words, mask ``0x00FF0F0F``) with 2^22 draws
    (about 4.19M keys after the dedupe): 8 reader threads, probe batches
    of 256, a writer folding 1,024 redrawn keys per cycle through
@@ -120,10 +131,11 @@ device or any phase fails:
    keyset and the ``"torch"`` backend's ``run_incremental`` on the same
    inputs.  Then again at the reference's admission point (a writer
    owing a cycle every 1 ms, lag bound 1, shed): both runs without a
-   torn read, stale epoch or error, at least 3 epochs, acquires equal to
-   releases, two readers pinned at once in the first, sheds in the
-   second; each run's ``to_row()``;
-13. pager: a ``"cuda"`` ``serve.pager.PagedKVManager`` of 2^17 pages of
+   torn read, stale epoch, error or warm trace, at least 3 epochs,
+   acquires equal to releases, two readers pinned at once in the first,
+   sheds in the second; each run's ``to_row()``, beside the figures
+   ``PERF.md`` records for the same run with eager lookups;
+14. pager: a ``"cuda"`` ``serve.pager.PagedKVManager`` of 2^17 pages of
    16 tokens (the KV cache of a Llama-3.2-1B-sized model in 64 GiB)
    filled with 4,000 sequences of 32 pages, beside a ``"torch"`` twin on
    the same card, its journal shipped by a ``StreamPrimary`` over a
@@ -137,8 +149,9 @@ device or any phase fails:
    at the same size (8 readers, 5 s): no torn read, stale epoch or
    error.  Each rebuild's wall and path, the gets per second and the
    percentiles are printed;
-14. kernel report: each kernel's launches on the main paths (phases 3, 5,
-   6, 7, 8, 9, 10, 11, 12 and 13, each counted from 0), its device time at the
+15. kernel report: each kernel's launches on the main paths (phases 3, 5,
+   6, 7, 8, 9, 10, 11, 12, 13 and 14, each counted from 0; a lookup graph's
+   replay counts the launches its capture recorded), its device time at the
    main path's
    shapes (and its time per call, host launch included), its plain
    version's time and the least time the card could take for the same
@@ -249,6 +262,9 @@ REPL_MAX_LAG = 2
 
 #: load: run_load's draws at full size (about 4.19M keys after the dedupe)
 LOAD_N_KEYS = 1 << 22
+#: the same run with eager lookups, as PERF.md section 5 records it (three
+#: calls on an H100 80GB HBM3 at 700 W): lookups/s and p50 of 8 readers
+EAGER_LOAD = {"lookups_per_s": [7500, 10300], "p50_us": [190000, 260000]}
 #: pager: 2^17 pages of 16 tokens, filled with 4,000 sequences of 32 pages
 #: (3,072 free), and the churn rounds after the first build
 PAGER_PAGES = 1 << 17
@@ -284,6 +300,8 @@ PATH_KERNELS = {
     "replication": ("pext", "bitonic_block_sort", "merge_rank", "pk_window", "dbit", "probe"),
     "load": ("pext", "bitonic_block_sort", "merge_rank", "pk_window", "dbit", "probe"),
     "pager": ("pext", "bitonic_block_sort", "merge_rank", "pk_window", "dbit", "probe"),
+    "plancache": ("pext", "bitonic_block_sort", "merge_rank", "pk_window", "dbit", "probe",
+                  "probe_many"),
 }
 
 
@@ -1112,7 +1130,220 @@ def multitenant_phase(args, dev, rng, launches: dict) -> dict:
     print("[multitenant] fused lookup_many == each tenant's single-tree lookup (dead lanes "
           "included) == torch backend; one engine flush, one dispatch", flush=True)
     return {"stacked": arena.stacked, "queries": q_norm,
-            "node": _descend_many(arena.stacked, q_norm)}
+            "node": _descend_many(arena.stacked, q_norm), "trees": trees, "q_np": q_np,
+            "n_valid": n_valid}
+
+
+def call_ms(fn, reps: int) -> float:
+    """Median wall of one call of ``fn`` from an idle card, the host's
+    launches included (CUDA events around the call)."""
+    return cuda_ms(fn, reps, with_launch=True)
+
+
+def eager_lookup(prog, tree, queries, n_valid):
+    """A lookup program's body run eagerly on the card over the padded
+    batch (the comparison for its graph): bucket-shaped (found, rid)."""
+    return prog.body(tree, queries, torch.as_tensor(np.asarray(n_valid, np.int64),
+                                                    device=queries.device))
+
+
+def tree_copy_ms(tree, reps: int) -> float:
+    """Device time of copying every array of ``tree`` into same-shaped
+    buffers: the copy a lookup graph makes for a new same-geometry epoch."""
+    src = plancache._tree_tensors(tree)
+    dst = [torch.empty_like(t) for t in src]
+
+    def copy():
+        for d, t in zip(dst, src):
+            d.copy_(t)
+
+    ms = cuda_ms(copy, reps)
+    del dst
+    return ms
+
+
+def plancache_phase(args, dev, rng, pipe, keyset, res, mt, launches: dict) -> None:
+    """Phase 8: the plan cache on the card.  The lookup programs are CUDA
+    graphs: on phase 3's 10M-key tree, a 2^18-query and a 256-query batch
+    replay byte for byte as their program's body run eagerly; batches of
+    256, 249 and 200 queries (one bucket) trace nothing; two
+    run_incremental epochs of 10,000 deletes and the same keys inserted
+    again under new rids keep the geometry: each is a tree copy, no trace,
+    and the replay equals the eager body on that epoch's tree; the same
+    for ``lookup_many`` on phase 7's six-tenant arena (drift within the
+    bucket, two re-stacked arenas of the same geometry).  ``reset_cache``
+    then gives back the memory the graphs held.  The path (the lookups
+    and the epochs' rebuilds, not the eager comparisons) is counted from
+    0."""
+    import gc
+
+    t_phase = time.perf_counter()
+    plancache.reset_cache()
+    gc.collect()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated(dev)
+    cache = plancache.get_cache()
+    cuda = pipe.backend
+    acc = launches.setdefault("plancache", {})
+    reps = max(args.reps, 10)
+    big_np, big_expect = make_queries(keyset.words, rng, BATCH)
+    small_np, small_expect = make_queries(keyset.words, rng, 256)
+    out = {"batches": {}}
+
+    def prog_of(op, *key):
+        return cache.programs[(op, "cuda") + key]
+
+    # -- replay == eager, capture and call times, for both batches ----------
+    for name, q_np, expect in (("2^18", big_np, big_expect), ("256", small_np, small_expect)):
+        q = to_carrier(q_np, dev)
+        b = plancache.bucket_for("lookup", q.shape[0])
+        mem_before = torch.cuda.memory_allocated(dev)
+        with counted(acc):
+            found, rid = cuda.lookup(res.tree, q)
+            torch.cuda.synchronize()
+        prog = prog_of("lookup", b, keyset.n_words)
+        check(prog.captured and prog.captures == 1, f"{name}: the lookup was not captured")
+        check(np.array_equal(to_u32(rid), expect), f"{name}: a replayed answer is wrong")
+        qp = plancache.pad_tail(q, b, 0xFFFFFFFF)
+        f_e, r_e = eager_lookup(prog, res.tree, qp, q.shape[0])
+        check(same(found, f_e[: q.shape[0]]) and same(rid, r_e[: q.shape[0]]),
+              f"{name}: the graph's replay differs from its body run eagerly")
+        out["batches"][name] = {
+            "bucket": b,
+            "capture_s": prog.capture_s,
+            "graph_buffer_bytes": prog.buffer_bytes,
+            "graph_pool_bytes": prog.pool_bytes,
+            "allocated_after_capture_bytes": torch.cuda.memory_allocated(dev) - mem_before,
+            "replay_launches": prog.replay_launches[0],
+            "eager_call_ms": call_ms(lambda: eager_lookup(prog, res.tree, qp, q.shape[0]), reps),
+            "replay_call_ms": call_ms(lambda: cuda.lookup(res.tree, q), reps),
+        }
+    traces0 = plancache.cache_stats()["traces"]
+
+    # -- drift within the 256 bucket ----------------------------------------
+    prog = prog_of("lookup", 256, keyset.n_words)
+    for size in (256, 249, 200):
+        q = to_carrier(small_np[:size], dev)
+        with counted(acc):
+            found, rid = cuda.lookup(res.tree, q)
+        f_e, r_e = eager_lookup(prog, res.tree, plancache.pad_tail(q, 256, 0xFFFFFFFF), size)
+        check(same(found, f_e[:size]) and same(rid, r_e[:size]),
+              f"drift to {size} queries: replay differs from eager")
+    check(plancache.cache_stats()["traces"] == traces0, "a batch within its bucket traced")
+
+    # -- two same-geometry epochs: 10,000 deletes, the same keys re-inserted
+    # -- under new rids ---------------------------------------------------------
+    q_big = to_carrier(big_np, dev)
+    prog = prog_of("lookup", BATCH, keyset.n_words)
+    prev, base, expect = res, keyset, big_expect.copy()
+    hits = expect != NOT_FOUND_RID
+    epochs = []
+    for e in range(2):
+        victims = rng.choice(base.n, size=10_000, replace=False)
+        keep = np.ones(base.n, bool)
+        keep[victims] = False
+        new_rids = np.uint32((1 << 30) + (e << 20)) + np.arange(10_000, dtype=np.uint32)
+        delta = KeySet(words=base.words[victims], lengths=base.lengths[victims],
+                       rids=new_rids)
+        moved = dict(zip(np.asarray(base.rids)[victims].tolist(), new_rids.tolist()))
+        copies, traces_e = prog.tree_copies, plancache.cache_stats()["traces"]
+        with counted(acc):
+            t1 = time.perf_counter()
+            prev, base = pipe.run_incremental(prev, base, delta, keep_rows=keep)
+            torch.cuda.synchronize()
+            rebuild_s = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            found, rid = cuda.lookup(prev.tree, q_big)
+            torch.cuda.synchronize()
+            first_call_s = time.perf_counter() - t1
+        check(btree.tree_geometry(prev.tree) == btree.tree_geometry(res.tree),
+              f"epoch {e}: the geometry changed")
+        check(prog.tree_copies == copies + 1 and prog.captures == 1,
+              f"epoch {e}: the new tree was not copied into the graph")
+        if e == 1:
+            check(plancache.cache_stats()["traces"] == traces_e,
+                  "the second same-geometry epoch traced a program")
+        f_e, r_e = eager_lookup(prog, prev.tree, q_big, BATCH)
+        check(same(found, f_e) and same(rid, r_e), f"epoch {e}: replay differs from eager")
+        expect[hits] = [moved.get(int(x), int(x)) for x in expect[hits]]
+        check(np.array_equal(to_u32(rid), expect), f"epoch {e}: an answer is stale")
+        epochs.append({"incremental": prev.stats["incremental"], "rebuild_s": rebuild_s,
+                       "first_lookup_s": first_call_s, "traces": plancache.cache_stats()[
+                           "traces"] - traces_e})
+    out["epochs"] = epochs
+    lookup_traces = plancache.cache_stats()["per_op"]["lookup"]["traces"]
+    check(lookup_traces == 2, f"the lookups traced {lookup_traces} times, not 2")
+    out["tree_copy_device_ms"] = tree_copy_ms(prev.tree, reps)
+    out["copy_call_ms"] = call_ms(
+        lambda: (cuda.lookup(res.tree, q_big), cuda.lookup(prev.tree, q_big)), reps) / 2
+    out["tree_copies"] = cache.tree_copies
+
+    # -- lookup_many on the six-tenant arena ----------------------------------
+    stacked, q_mt, n_valid = mt["stacked"], mt["q_np"], mt["n_valid"]
+    t_cap, n_q = int(stacked.sorted_full.shape[0]), q_mt.shape[1]
+    bm = plancache.bucket_for("lookup_many", n_q)
+    queries = to_carrier(q_mt, dev)
+    with counted(acc):
+        found, rid = cuda.lookup_many(stacked, queries, n_valid)
+        torch.cuda.synchronize()
+    prog_m = prog_of("lookup_many", t_cap, bm, 16, btree.tree_geometry(stacked))
+    nv_full = np.zeros(t_cap, np.int64)
+    nv_full[: len(n_valid)] = n_valid
+    qp = plancache.pad_tail(queries, t_cap, 0xFFFFFFFF)
+    f_e, r_e = eager_lookup(prog_m, stacked, qp, nv_full)
+    check(same(found, f_e[: len(n_valid)]) and same(rid, r_e[: len(n_valid)]),
+          "lookup_many: the replay differs from its body run eagerly")
+    traces_m = plancache.cache_stats()["traces"]
+    for cut in (1, 100):
+        nv_cut = np.minimum(n_valid, n_q - cut)
+        with counted(acc):
+            found, rid = cuda.lookup_many(stacked, queries[:, : n_q - cut], nv_cut)
+        nv_c = np.zeros(t_cap, np.int64)
+        nv_c[: len(nv_cut)] = nv_cut
+        f_e, r_e = eager_lookup(prog_m, stacked, qp, nv_c)
+        check(same(found, f_e[: len(n_valid), : n_q - cut])
+              and same(rid, r_e[: len(n_valid), : n_q - cut]),
+              f"lookup_many at {n_q - cut} queries: replay differs from eager")
+    trees = [mt["trees"][t] for t in range(N_TENANTS)]
+    for e in (1, 2):
+        rotated = btree.stack_trees(trees[e:] + trees[:e], capacity=t_cap)
+        copies = prog_m.tree_copies
+        with counted(acc):
+            found, rid = cuda.lookup_many(rotated, queries, n_valid)
+        check(prog_m.tree_copies == copies + 1, f"arena {e}: not copied into the graph")
+        f_e, r_e = eager_lookup(prog_m, rotated, qp, nv_full)
+        check(same(found, f_e[: len(n_valid)]) and same(rid, r_e[: len(n_valid)]),
+              f"arena {e}: replay differs from eager")
+        del rotated
+    check(plancache.cache_stats()["traces"] == traces_m,
+          "lookup_many traced within its bucket or across same-geometry arenas")
+    out["lookup_many"] = {
+        "t_cap": t_cap, "bucket": bm, "capture_s": prog_m.capture_s,
+        "graph_buffer_bytes": prog_m.buffer_bytes, "graph_pool_bytes": prog_m.pool_bytes,
+        "replay_launches": prog_m.replay_launches[0],
+        "eager_call_ms": call_ms(lambda: eager_lookup(prog_m, stacked, qp, nv_full), reps),
+        "replay_call_ms": call_ms(lambda: cuda.lookup_many(stacked, queries, n_valid), reps),
+    }
+    out["graphs"] = cache.graph_stats()
+    out["stats"] = plancache.cache_stats()
+    check_launches("plancache", acc)
+
+    # -- reset: the graphs give their memory back ------------------------------
+    del found, rid, f_e, r_e, qp, q_big, queries, prev, base, prog, prog_m
+    plancache.reset_cache()
+    gc.collect()
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated(dev)
+    check(abs(mem1 - mem0) <= mem0 // 100,
+          f"after reset_cache {mem1} bytes are allocated, {mem0} before the phase")
+    out["allocated_before_gib"] = mem0 / 2**30
+    out["allocated_after_reset_gib"] = mem1 / 2**30
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["launches"] = acc
+    print(f"[plancache] {json.dumps(out)}", flush=True)
+    print("[plancache] lookup and lookup_many replay their graphs == their bodies run "
+          "eagerly; no trace across drift within a bucket and same-geometry epochs (tree "
+          f"copies); reset_cache gives the memory back; {card_line()}", flush=True)
 
 
 def check_load(rep: dict, what: str) -> None:
@@ -1123,10 +1354,11 @@ def check_load(rep: dict, what: str) -> None:
     check(sorted(served) == list(range(rep["n_tenants"])) and min(served.values()) > 0,
           f"{what}: a tenant was starved ({served})")
     check(rep["epochs_published"] > 8, f"{what}: {rep['epochs_published']} epochs published")
+    check(rep["warm_traces"] == 0, f"{what}: {rep['warm_traces']} warm traces")
 
 
 def mt_load_phase(args, dev, launches: dict) -> None:
-    """Phase 8: the closed-loop multi-tenant harness without the SLO, then
+    """Phase 9: the closed-loop multi-tenant harness without the SLO, then
     with it at 4x the first run's unloaded p50 (the path, counted from 0
     over both)."""
     opts = dict(backend="cuda", device=dev, n_tenants=8, n_keys=1 << 17, n_words=4,
@@ -1222,7 +1454,7 @@ def timed_rebuild(oi, oi_t, dev, acc: dict, what: str) -> tuple:
 
 
 def online_phase(args, dev, rng, keyset, res, res_torch, launches: dict) -> dict:
-    """Phase 9: the slice's index taken online on ``"cuda"`` beside a
+    """Phase 10: the slice's index taken online on ``"cuda"`` beside a
     ``"torch"`` twin given the same mutations, the meta compared after
     each.  Round 1: 1,000 fresh inserts (ten of them set a new
     distinction bit), 900 base and 100 delta deletes, one ``search_batch``
@@ -1388,7 +1620,7 @@ def many_sets(args, rng) -> list:
 
 
 def run_many_phase(args, dev, rng, launches: dict) -> dict:
-    """Phase 10: ``run_many`` on ``"cuda"`` over four same-bucket key sets
+    """Phase 11: ``run_many`` on ``"cuda"`` over four same-bucket key sets
     that share one DS-metadata, as replicas of one index do (one group: a
     pext per member, one bitonic launch over the stack), and one of
     another bucket with no metadata given (``meta_from_keys``, then
@@ -1470,7 +1702,7 @@ def run_many_phase(args, dev, rng, launches: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 11: replication and index recovery
+# phase 12: replication and index recovery
 # ---------------------------------------------------------------------------
 
 @contextmanager
@@ -1520,7 +1752,7 @@ def dir_bytes(root: Path) -> int:
 
 
 def replication_phase(args, dev, rng, keyset, launches: dict) -> dict:
-    """Phase 11: phase 3's keys as the base table of a ``StreamPrimary``
+    """Phase 12: phase 3's keys as the base table of a ``StreamPrimary``
     on ``"cuda"`` over a ``DirectoryTransport`` (frames fsynced on disk)
     with bounded lag 2, so it checkpoints with truncation after batches 2
     and 5 (a full step, then a delta step chained onto it).  Six batches
@@ -1703,7 +1935,7 @@ def replication_phase(args, dev, rng, keyset, launches: dict) -> dict:
         "restore_step2_index_rebuild_s": rst["index_rebuild_s"],
         "ckpt_bytes_by_step": ckpt_bytes, "spool_bytes_at_end": spool_bytes,
         "lagger_polls": polls, "lagger_stats": lagger_stats, "tail_stats": tail_stats,
-        "insert_rule_rank": ins_rank_line,
+        "insert_rule_rank": ins_rank_line, "soak_steady_traces": soak["steady_traces"],
         "peak_mem_gib": peak_gib,
         "soak": {"wall_s": soak_s, "faults": soak["faults_injected"],
                  "survivors": soak["survivors"]},
@@ -1748,13 +1980,14 @@ def check_run_load(rep, what: str) -> None:
     check(rep.torn_reads == 0, f"{what}: {rep.torn_reads} torn reads")
     check(rep.stale_epochs == 0, f"{what}: {rep.stale_epochs} stale epochs")
     check(rep.epochs_published >= 3, f"{what}: {rep.epochs_published} epochs published")
+    check(rep.warm_traces == 0, f"{what}: {rep.warm_traces} warm traces")
     st = rep.cell_stats
     check(st["acquires"] == st["releases"] and st["pinned"] == 0,
           f"{what}: {st['acquires']} acquires, {st['releases']} releases")
 
 
 def load_phase(args, dev, launches: dict) -> None:
-    """Phase 12: ``run_load`` on ``"cuda"`` at the reference bench's key
+    """Phase 13: ``run_load`` on ``"cuda"`` at the reference bench's key
     shape (two words) with 2^22 draws: 8 readers, probe batches of 256,
     mutation batches of 1,024, 5 s; then again at the reference's
     admission point (a writer owing a cycle every 1 ms, lag bound 1,
@@ -1794,7 +2027,7 @@ def load_phase(args, dev, launches: dict) -> None:
           f"{shed.cell_stats['shed']} in the cell")
     check_launches("load", acc)
     head = {"n_keys": n_keys, "draws": n_draws, "phase_s": time.perf_counter() - t_phase,
-            "wall_s": plain_wall}
+            "wall_s": plain_wall, "eager_lookups_recorded": EAGER_LOAD}
     print(f"[load] {json.dumps({**head, **plain.to_row()})}", flush=True)
     print(f"[load] admission {json.dumps({'wall_s': shed_wall, **shed.to_row()})}", flush=True)
     print(f"[load] launches {json.dumps(acc)}; the first incremental == a full cuda run == "
@@ -1828,7 +2061,7 @@ def check_gets(answer, table: dict, gone: np.ndarray, what: str) -> None:
 
 
 def pager_phase(args, dev, launches: dict) -> None:
-    """Phase 13: a ``"cuda"`` ``PagedKVManager`` of 2^17 pages of 16 tokens
+    """Phase 14: a ``"cuda"`` ``PagedKVManager`` of 2^17 pages of 16 tokens
     beside a ``"torch"`` twin on the same card, filled with 4,000
     sequences of 32 pages, its journal shipped by a ``StreamPrimary``
     over a ``DirectoryTransport`` (under a temporary directory) to a
@@ -2019,7 +2252,7 @@ def main(argv=None) -> int:
     check(same(torch.sort(res.rid_sorted).values, torch.arange(n, device=dev)),
           "rid_sorted is not a permutation")
     ref_pipe = ReconstructionPipeline(backend="torch", chunk_threshold=threshold, device=dev)
-    res_torch = ref_pipe.run(keyset)  # kept for phase 9's "torch" twin
+    res_torch = ref_pipe.run(keyset)  # kept for phase 10's "torch" twin
     results_equal(res, res_torch, "cuda vs torch")
     results_equal(full, ref_pipe.run(keyset, full_keys=True), "full keys, cuda vs torch")
     del full, ref_pipe
@@ -2168,26 +2401,30 @@ def main(argv=None) -> int:
     # -- 7. multitenant: six 1M-key tenants in one arena ------------------------
     mt = multitenant_phase(args, dev, rng, launches)
 
-    # -- 8. mt_load: the closed-loop harness, with and without the SLO ----------
+    # -- 8. plancache: the lookups replayed as CUDA graphs ---------------------
+    plancache_phase(args, dev, rng, pipe, keyset, res, mt, launches)
+    del mt["trees"]
+
+    # -- 9. mt_load: the closed-loop harness, with and without the SLO ----------
     mt_load_phase(args, dev, launches)
 
-    # -- 9. online: phase 3's index takes inserts, deletes, searches, rebuilds ---
+    # -- 10. online: phase 3's index takes inserts, deletes, searches, rebuilds ---
     online_phase(args, dev, rng, keyset, res, res_torch, launches)
     del res_torch
 
-    # -- 10. run_many: four same-bucket key sets batched, a fifth alone ----------
+    # -- 11. run_many: four same-bucket key sets batched, a fifth alone ----------
     many = run_many_phase(args, dev, rng, launches)
 
-    # -- 11. replication: a primary, two tails and a recovering lagger ---------
+    # -- 12. replication: a primary, two tails and a recovering lagger ---------
     replication_phase(args, dev, rng, keyset, launches)
 
-    # -- 12. load: reads racing incremental rebuilds, with and without shedding -
+    # -- 13. load: reads racing incremental rebuilds, with and without shedding -
     load_phase(args, dev, launches)
 
-    # -- 13. pager: the serving page table, its standby and its load run --------
+    # -- 14. pager: the serving page table, its standby and its load run --------
     pager_phase(args, dev, launches)
 
-    # -- 14. kernel report at the main paths' shapes -----------------------------
+    # -- 15. kernel report at the main paths' shapes -----------------------------
     b = plancache.bucket(n)
     words_dev = plancache.pad_tail(to_carrier(keyset.words, dev), b, plancache.SENTINEL)
     plan = make_plan(res.extract_bitmap, keyset.n_words)

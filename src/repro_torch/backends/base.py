@@ -23,6 +23,10 @@ be bit-for-bit equal across backends.  ``lookup_many`` lifts it over the
 tenant axis of a stacked arena: each tenant's row equals ``lookup`` on
 that tenant's tree alone.
 
+Every op but ``extract`` runs as a program of the plan cache
+(``repro_torch.core.plancache``) under the reference's key, with the
+backend's name in it; on CUDA the two lookups are captured graphs.
+
 Every backend runs on one ``device``: CUDA unless the caller passes
 another (``device="cpu"`` runs the plain versions on the host).  With no
 GPU and no explicit device, construction raises.
@@ -158,8 +162,9 @@ class ExecutionBackend(abc.ABC):
         """
         from repro_torch.core.plancache import merge_padded
 
-        return merge_padded(keys_a, rows_a, keys_b, rows_b, n_valid_a=n_valid_a,
-                            n_valid_b=n_valid_b, keep_padded=keep_padded)
+        return merge_padded(keys_a, rows_a, keys_b, rows_b, backend=self.name,
+                            n_valid_a=n_valid_a, n_valid_b=n_valid_b,
+                            keep_padded=keep_padded)
 
     # -------------------------------------------------------------- build
     def build(self, comp_sorted, row_sorted, meta, words, lengths, config,
@@ -171,7 +176,8 @@ class ExecutionBackend(abc.ABC):
         from repro_torch.core.btree import build_btree
 
         return build_btree(comp_sorted, row_sorted, meta, words, lengths, config,
-                           rids=rids, dpos_fn=self.dpos_fn, n_valid=n_valid)
+                           rids=rids, dpos_fn=self.dpos_fn, n_valid=n_valid,
+                           backend_name=self.name)
 
     # ------------------------------------------------------------- lookup
     def lookup(self, tree, queries: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -181,7 +187,8 @@ class ExecutionBackend(abc.ABC):
         from repro_torch.core.btree import lookup_batch_planned
         from repro_torch.kernels.lookup import leaf_stage_many_plain
 
-        return lookup_batch_planned(tree, queries, leaf_stage_fn=leaf_stage_many_plain)
+        return lookup_batch_planned(tree, queries, leaf_stage_fn=leaf_stage_many_plain,
+                                    backend_name=self.name)
 
     def lookup_many(self, stacked, queries: torch.Tensor, n_valid=None):
         """Fused point lookup over T stacked same-geometry trees.
@@ -199,7 +206,7 @@ class ExecutionBackend(abc.ABC):
         from repro_torch.kernels.lookup import leaf_stage_many_plain
 
         return lookup_many_planned(stacked, queries, n_valid,
-                                   leaf_stage_fn=leaf_stage_many_plain)
+                                   leaf_stage_fn=leaf_stage_many_plain, backend_name=self.name)
 
     # ------------------------------------------------------- refresh meta
     def refresh_meta(self, comp_sorted: torch.Tensor, meta, ref_key,
@@ -214,7 +221,8 @@ class ExecutionBackend(abc.ABC):
         from repro_torch.core.metadata import meta_on_rebuild
         from repro_torch.core.plancache import adjacent_dbitmap_padded
 
-        bits = adjacent_dbitmap_padded(comp_sorted, n_valid=n_valid, impl=self.dbitmap_fn)
+        bits = adjacent_dbitmap_padded(comp_sorted, backend=self.name, n_valid=n_valid,
+                                       impl=self.dbitmap_fn)
         comp_unused = np.zeros((0, int(comp_sorted.shape[1])), np.uint32)
         return meta_on_rebuild(comp_unused, meta, np.asarray(ref_key), dbitmap_comp=bits)
 
@@ -236,12 +244,24 @@ class ExecutionBackend(abc.ABC):
         ``(comp_sorted (k, b, Wc), row_sorted (k, b))``, each member in
         ascending (key, row) order.  Only called when
         ``supports_batched``; the default is the runtime-bitmap extract
-        and the keyed sort, member by member.
+        and the keyed sort, member by member, one program per ``(k, n, W,
+        Wc)`` under the key ``("run_many", name, k, n, W, Wc)``.
         """
         from repro_torch.core.dbits import sort_words_keyed
+        from repro_torch.core.plancache import get_cache
 
+        cache = get_cache()
+        k, n, w = (int(s) for s in words.shape)
         n_words_out = plans[0].n_words_out  # equal across the batch
-        out = [sort_words_keyed(self.extract_dynamic(words[i], bitmaps[i], n_words_out),
-                                rows[i])
-               for i in range(int(words.shape[0]))]
-        return torch.stack([k for k, _ in out]), torch.stack([r for _, r in out])
+
+        def builder():
+            def prog(wds, bms, rws):
+                out = [sort_words_keyed(self.extract_dynamic(wds[i], bms[i], n_words_out),
+                                        rws[i])
+                       for i in range(int(wds.shape[0]))]
+                return torch.stack([c for c, _ in out]), torch.stack([r for _, r in out])
+
+            return cache.traced(prog)
+
+        prog = cache.program(("run_many", self.name, k, n, w, n_words_out), builder)
+        return prog(words, bitmaps, rows)

@@ -29,14 +29,17 @@
   stacked ``(k·n_pad, Wc)`` rows, where ``n_pad`` is the member's bucket
   rounded up to a multiple of the block (512), so no block straddles two
   members; then one keyed sort of the whole stack with the member as its
-  leading key.  No fused path, as the reference's pallas backend has
-  none;
+  leading key, that sort one program under ``("run_many", "cuda", k, b,
+  Wc, block)`` as the reference's pallas backend keys it.  No fused
+  path, as the reference's pallas backend has none;
 * ``refresh_meta`` — the dbit kernel's bitmap form reduces the sorted
   run's adjacent D-bits to its Wc bitmap words on the card; the base
   class maps their set bits through D-offset on the host.  The
   pipeline's ``meta_from_keys`` runs the same form over the sorted full
   keys (``dbitmap_fn``).
 
+Every op but ``extract`` is a plan-cache program under the reference's
+key with ``"cuda"`` as the backend; the lookups replay CUDA graphs on the card.
 On a CPU device every wrapper takes its plain version, so the backend is
 testable without a card; on a CUDA device it launches the kernels.
 """
@@ -48,7 +51,7 @@ import torch
 from repro_torch.core.compress import ExtractionPlan
 from repro_torch.core.dbits import sort_words_keyed
 from repro_torch.core.plancache import (
-    ROW_PAD_B, SENTINEL, iota, merge_padded, pad_tail, sort_padded)
+    ROW_PAD_B, SENTINEL, get_cache, iota, merge_padded, pad_tail, sort_padded)
 from repro_torch.kernels import merge
 from repro_torch.kernels.bitonic import DEFAULT_BLOCK, block_sort
 from repro_torch.kernels.build import gather_windows, pk_windows
@@ -79,7 +82,8 @@ class CudaBackend(ExecutionBackend):
         def impl(kp, rp):
             return sort_words_keyed(*block_sort(kp, rp))
 
-        return sort_padded(keys, rows, impl=impl, n_valid=n_valid,
+        return sort_padded(keys, rows, backend=self.name, impl=impl,
+                           extra_key=(DEFAULT_BLOCK,), n_valid=n_valid,
                            keep_padded=keep_padded)
 
     def batched_extract_sort(self, words, bitmaps, rows, plans):
@@ -91,20 +95,31 @@ class CudaBackend(ExecutionBackend):
         n_pad = -(-b // DEFAULT_BLOCK) * DEFAULT_BLOCK
         comp = torch.stack([pext(words[i], p) for i, p in enumerate(plans)])
         wc = int(comp.shape[2])
-        extra = ROW_PAD_B + iota(n_pad, comp.device)[b:]
-        comp = pad_tail(comp, n_pad, SENTINEL, dim=1).reshape(k * n_pad, wc)
-        rws = torch.cat([rows, extra.expand(k, n_pad - b)], dim=1).reshape(k * n_pad)
-        keys, rws = block_sort(comp, rws, block=DEFAULT_BLOCK)
-        # rows repeat across members, so the member leads the key: one
-        # series of stable sorts orders the whole stack, member by member
-        member = torch.arange(k, device=comp.device).repeat_interleave(n_pad)
-        keyed, rws = sort_words_keyed(torch.cat([member[:, None], keys], dim=1), rws)
-        keys = keyed[:, 1:].reshape(k, n_pad, wc)[:, :b].contiguous()
-        return keys, rws.reshape(k, n_pad)[:, :b].contiguous()
+        cache = get_cache()
+
+        def builder():
+            def prog(comp, rows):
+                extra = ROW_PAD_B + iota(n_pad, comp.device)[b:]
+                comp = pad_tail(comp, n_pad, SENTINEL, dim=1).reshape(k * n_pad, wc)
+                rws = torch.cat([rows, extra.expand(k, n_pad - b)], dim=1).reshape(k * n_pad)
+                keys, rws = block_sort(comp, rws, block=DEFAULT_BLOCK)
+                # rows repeat across members, so the member leads the key:
+                # one series of stable sorts orders the whole stack, member
+                # by member
+                member = torch.arange(k, device=comp.device).repeat_interleave(n_pad)
+                keyed, rws = sort_words_keyed(torch.cat([member[:, None], keys], dim=1), rws)
+                keys = keyed[:, 1:].reshape(k, n_pad, wc)[:, :b].contiguous()
+                return keys, rws.reshape(k, n_pad)[:, :b].contiguous()
+
+            return cache.traced(prog)
+
+        prog = cache.program(("run_many", self.name, k, b, wc, DEFAULT_BLOCK), builder)
+        return prog(comp, rows)
 
     def merge_sorted(self, keys_a, rows_a, keys_b, rows_b, *,
                      n_valid_a=None, n_valid_b=None, keep_padded=False):
-        return merge_padded(keys_a, rows_a, keys_b, rows_b, impl=merge.merge_sorted,
+        return merge_padded(keys_a, rows_a, keys_b, rows_b, backend=self.name,
+                            impl=merge.merge_sorted,
                             n_valid_a=n_valid_a, n_valid_b=n_valid_b,
                             keep_padded=keep_padded)
 
@@ -114,14 +129,17 @@ class CudaBackend(ExecutionBackend):
 
         return build_btree(comp_sorted, row_sorted, meta, words, lengths, config,
                            rids=rids, dpos_fn=self.dpos_fn, slice_fn=pk_windows,
-                           gather_slice_fn=gather_windows, n_valid=n_valid)
+                           gather_slice_fn=gather_windows, n_valid=n_valid,
+                           backend_name=self.name)
 
     def lookup(self, tree, queries):
         from repro_torch.core.btree import lookup_batch_planned
 
-        return lookup_batch_planned(tree, queries, leaf_stage_fn=leaf_stage)
+        return lookup_batch_planned(tree, queries, leaf_stage_fn=leaf_stage,
+                                    backend_name=self.name)
 
     def lookup_many(self, stacked, queries, n_valid=None):
         from repro_torch.core.btree import lookup_many_planned
 
-        return lookup_many_planned(stacked, queries, n_valid, leaf_stage_fn=leaf_stage_many)
+        return lookup_many_planned(stacked, queries, n_valid, leaf_stage_fn=leaf_stage_many,
+                                   backend_name=self.name)

@@ -28,8 +28,9 @@ class TorchBackend(ExecutionBackend):
         return extract_bits(words, plan)
 
     def sort(self, keys, rows, *, n_valid=None, keep_padded=False):
-        return sort_padded(keys, rows, n_valid=n_valid, keep_padded=keep_padded)
+        return sort_padded(keys, rows, backend=self.name, n_valid=n_valid,
+                           keep_padded=keep_padded)
 
     def fused_extract_sort(self, words, plan, rows, *, n_valid=None, keep_padded=False):
-        return fused_extract_sort_padded(words, plan, rows, n_valid=n_valid,
-                                         keep_padded=keep_padded)
+        return fused_extract_sort_padded(words, plan, rows, backend=self.name,
+                                         n_valid=n_valid, keep_padded=keep_padded)

@@ -26,6 +26,10 @@ Multi-tenant serving stacks same-geometry trees (``tree_geometry``,
 descends every tenant's queries through its own member tree in one
 batched pass, with explicit per-tenant offsets into the flattened
 stacked arrays where the reference ``vmap``s the single-tree descent.
+
+The build's leaf and upper levels and both lookups run as plan-cache
+programs (``repro_torch.core.plancache``); on CUDA the lookups are
+captured graphs.
 """
 
 from __future__ import annotations
@@ -148,6 +152,72 @@ def _pad_rows(x: torch.Tensor, rows: int, fill) -> torch.Tensor:
     return torch.cat([x, tail])
 
 
+def _fit_rows(x: torch.Tensor | None, rows: int, fill) -> torch.Tensor | None:
+    """``x`` cut or padded to ``rows`` rows (a bucket-shaped operand whose
+    lanes past the valid count are never read)."""
+    if x is None:
+        return None
+    return x[:rows] if x.shape[0] > rows else _pad_rows(x, rows, fill)
+
+
+def _leaf_body(dpos_fn, gather_slice_fn, pk: int):
+    """The leaf level's entries, one program: the adjacent compressed-key
+    D-bits mapped through D-offset, the row gather of the sorted full keys
+    with each entry's partial key, the key lengths and the rids.  Operands
+    are bucket-shaped; ``n`` and ``n_off`` (the D-offset length) are data,
+    and only the first ``n`` lanes are read."""
+
+    def prog(comp_pad, words_pad, lengths_pad, rids_pad, row_pad, d_off_pad, n, n_off):
+        dev = comp_pad.device
+        comp = comp_pad[:n]
+        rowc = row_pad[:n].clamp(0, max(n - 1, 0))
+        # distinction bit position per sorted entry (entry 0 -> position 0)
+        dpos_comp = dpos_fn(comp)
+        tail = torch.where(
+            dpos_comp == NO_DBIT, torch.zeros_like(dpos_comp),
+            d_off_pad[dpos_comp.clamp(0, max(n_off - 1, 0))],
+        )
+        dpos_full = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), tail])[:n]
+        # the full keys in sorted order, and the partial key of each: pk
+        # bits following the distinction bit position
+        sorted_full, pkeys = gather_slice_fn(words_pad, rowc, dpos_full + 1, pk)
+        W = int(words_pad.shape[1])
+        klen = (
+            torch.full((n,), W * 4, dtype=torch.int64, device=dev)
+            if lengths_pad is None else lengths_pad[rowc].to(torch.int64)
+        )
+        rid_sorted = rowc if rids_pad is None else rids_pad[rowc]
+        return sorted_full, pkeys, dpos_full, klen, rid_sorted
+
+    return prog
+
+
+def _level_body(slice_fn, pk: int):
+    """One non-leaf level's entries, one program over ``Bn`` bucket-padded
+    node rows: the adjacent highest-key D-bits (compressed keys + D-offset,
+    §5.3), each entry's partial key from its highest key's full key
+    (``words[row_sorted[hi]]``, read through the row) and its key length.
+    """
+
+    def prog(hi_pad, comp_pad, words_pad, lengths_pad, row_pad, d_off_pad, n, n_off):
+        hi_prev = torch.cat([hi_pad[:1], hi_pad[:-1]])
+        bc = hi_pad.clamp(0, n - 1)
+        dc = dbit_position_pairwise(comp_pad[hi_prev.clamp(0, n - 1)], comp_pad[bc])
+        dfull = torch.where(dc == NO_DBIT, torch.zeros_like(dc),
+                            d_off_pad[dc.clamp(0, max(n_off - 1, 0))])
+        dfull[0] = 0
+        rows = row_pad[bc].clamp(0, max(n - 1, 0))
+        epk = slice_fn(words_pad, dfull + 1, pk, rows)
+        W = int(words_pad.shape[1])
+        klen_hi = (
+            torch.full(tuple(bc.shape), W * 4, dtype=torch.int64, device=bc.device)
+            if lengths_pad is None else lengths_pad[rows].to(torch.int64)
+        )
+        return dfull, epk, klen_hi
+
+    return prog
+
+
 def build_btree(
     comp_sorted: torch.Tensor,
     row_sorted: torch.Tensor,
@@ -161,6 +231,9 @@ def build_btree(
     slice_fn=None,
     gather_slice_fn=None,
     n_valid: int | None = None,
+    backend_name: str = "torch",
+    program_key_extra: tuple = (),
+    cache=None,
 ) -> BTree:
     """Bulk-build the tree from sorted compressed keys + row positions (§5.3).
 
@@ -170,6 +243,14 @@ def build_btree(
     Distinction bit positions of entries come from adjacent *compressed*
     keys mapped through D-offset — no full-key comparisons anywhere in the
     build, which is the point of the paper.
+
+    The leaf level's entries are one program and each upper level's one
+    more, cached in the plan cache (``repro_torch.core.plancache``) under
+    ``("build_leaf", backend, B, W, Wc, pk)`` and ``("build_level",
+    backend, Bn, B, W, Wc, pk)`` plus ``program_key_extra`` (configuration
+    baked into the hooks); the inputs pad to the bucket ``B`` and the
+    valid count travels as data, so sizes inside a bucket replay the same
+    programs.  Only reshapes run between the program calls.
 
     Three hooks substitute the adjacent D-bits and the partial-key windows
     (the CUDA backend passes its dbit kernel's positions form and its
@@ -183,6 +264,9 @@ def build_btree(
     ``n_valid`` marks ``comp_sorted``/``row_sorted`` as bucket-shaped with
     ``n_valid`` real rows; only those are read.
     """
+    from . import plancache
+
+    cache = cache or plancache.get_cache()
     if dpos_fn is None:
         dpos_fn = adjacent_dbit_positions
     if slice_fn is None:
@@ -191,30 +275,31 @@ def build_btree(
         gather_slice_fn = _gather_slice
     n = int(comp_sorted.shape[0]) if n_valid is None else int(n_valid)
     dev = comp_sorted.device
-    comp = comp_sorted[:n]
     W = int(table_words.shape[1])
+    Wc = int(comp_sorted.shape[1])
     lc, nc = config.leaf_cap, config.nonleaf_cap
     pk = config.pk_bits
 
-    d_off = torch.as_tensor(meta.d_offset().astype(np.int64), device=dev)
+    d_off = np.asarray(meta.d_offset(), np.int64)
     n_off = int(d_off.shape[0])
+    # padded to the most D-bits a W-word key can have: a fixed shape
+    d_off_pad = torch.as_tensor(
+        np.concatenate([d_off, np.zeros(W * 32 - n_off, np.int64)]), device=dev)
 
-    # ---------------- leaf level: dpos, then the gather and windows ----------------
-    rowc = row_sorted[:n].clamp(0, max(n - 1, 0))
-    # distinction bit position per sorted entry (entry 0 -> position 0)
-    dpos_comp = dpos_fn(comp)
-    tail = torch.where(
-        dpos_comp == NO_DBIT, torch.zeros_like(dpos_comp), d_off[dpos_comp.clamp(0, n_off - 1)]
+    B = int(comp_sorted.shape[0]) if n_valid is not None else plancache.bucket_for("build", n)
+    comp_pad = _fit_rows(comp_sorted, B, 0)
+    words_pad = _fit_rows(table_words, B, 0)
+    row_pad = _fit_rows(row_sorted, B, 0)
+    lengths_pad = _fit_rows(table_lengths, B, 0)
+    rids_pad = _fit_rows(rids, B, 0)
+
+    # ---------------- leaf level (one program + reshapes) ----------------
+    leaf_prog = cache.program(
+        ("build_leaf", backend_name, B, W, Wc, pk) + tuple(program_key_extra),
+        lambda: cache.traced(_leaf_body(dpos_fn, gather_slice_fn, pk)),
     )
-    dpos_full = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), tail])[:n]
-    # the full keys in sorted order, and the partial key of each: pk bits
-    # following the distinction bit position
-    sorted_full, pkeys = gather_slice_fn(table_words, rowc, dpos_full + 1, pk)
-    klen = (
-        torch.full((n,), W * 4, dtype=torch.int64, device=dev)
-        if table_lengths is None else table_lengths[rowc].to(torch.int64)
-    )
-    rid_sorted = rowc if rids is None else rids[rowc]
+    sorted_full, pkeys, dpos_full, klen, rid_sorted = leaf_prog(
+        comp_pad, words_pad, lengths_pad, rids_pad, row_pad, d_off_pad, n, n_off)
 
     n_leaves = -(-n // lc)
     rows = n_leaves * lc
@@ -234,20 +319,23 @@ def build_btree(
     while child_idx.shape[0] > 1:
         n_nodes = -(-int(child_idx.shape[0]) // nc)
         rows = n_nodes * nc
+        Bn = plancache.bucket(rows)
         hi = _pad_rows(child_hi, rows, -1)
-        hi_prev = torch.cat([hi[:1], hi[:-1]])
-        bc = hi.clamp(0, n - 1)
-        dc = dbit_position_pairwise(comp[hi_prev.clamp(0, n - 1)], comp[bc])
-        dfull = torch.where(dc == NO_DBIT, torch.zeros_like(dc), d_off[dc.clamp(0, n_off - 1)])
-        dfull[0] = 0
+        level_prog = cache.program(
+            ("build_level", backend_name, Bn, B, W, Wc, pk) + tuple(program_key_extra),
+            lambda: cache.traced(_level_body(slice_fn, pk)),
+        )
+        dfull, epk, klen_hi = level_prog(
+            _pad_rows(hi, Bn, -1), comp_pad, words_pad, lengths_pad, row_pad, d_off_pad,
+            n, n_off)
         child = _pad_rows(child_idx, rows, -1).reshape(n_nodes, nc)
         hi_grid = hi.reshape(n_nodes, nc)
         levels.append({
             "child": child,
             "hi": hi_grid,
-            "pk": slice_fn(sorted_full, dfull + 1, pk, bc).reshape(n_nodes, nc),
-            "dpos": dfull.reshape(n_nodes, nc),
-            "klen": klen[bc].reshape(n_nodes, nc),
+            "pk": epk[:rows].reshape(n_nodes, nc),
+            "dpos": dfull[:rows].reshape(n_nodes, nc),
+            "klen": klen_hi[:rows].reshape(n_nodes, nc),
         })
         # parents become the children of the next level up
         last_valid = (child >= 0).sum(dim=1) - 1
@@ -314,22 +402,51 @@ def search_batch(tree: BTree, queries: torch.Tensor):
     return found, rid, pos0 + e
 
 
-def lookup_batch_planned(
-    tree: BTree, queries: torch.Tensor, *, leaf_stage_fn
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Batched point lookup (§4.3 search): ``(found (q,) bool, rid (q,))``
-    with miss lanes set to :data:`NOT_FOUND_RID` — the backend ``lookup``
-    op's byte-identity contract.
+def _lookup_body(leaf_stage_fn):
+    """The batched point lookup, one program: lanes at or past ``n_valid``
+    (a 0-dim tensor) become all-ones queries, then the descent and the
+    leaf stage of :func:`_lookup_many_body` on the one-member arena of the
+    tree.  Nothing is read back to the host, so on CUDA it is captured as
+    a graph."""
 
-    It is :func:`lookup_many_planned` on a one-member arena, and
-    ``leaf_stage_fn`` is its hook: ``(stacked, (1, q) node, (1, q, W)
-    queries) -> ((1, q) found, (1, q) rid)`` on :func:`_as_stack` of the
-    tree.  The reference pads the batch to a compile bucket and answers
-    the pad lanes as garbage; eager PyTorch needs no bucket, so only the
-    real queries are descended.
+    def prog(tree, queries, n_valid):
+        found, rid = _lookup_many_body(leaf_stage_fn)(_as_stack(tree), queries[None],
+                                                      n_valid.reshape(1))
+        return found[0], rid[0]
+
+    return prog
+
+
+def lookup_batch_planned(
+    tree: BTree, queries: torch.Tensor, *, leaf_stage_fn, backend_name: str = "torch",
+    program_key_extra: tuple = (), cache=None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched point lookup through the plan cache (§4.3 search):
+    ``(found (q,) bool, rid (q,))`` with miss lanes set to
+    :data:`NOT_FOUND_RID` — the backend ``lookup`` op's byte-identity
+    contract.
+
+    The batch pads to ``bucket_for("lookup", q)`` with all-ones lanes and
+    runs the program cached under ``("lookup", backend_name, bucket, W)``
+    plus ``program_key_extra`` (configuration baked into the leaf stage);
+    the valid count travels as data and the program normalizes the pad
+    lanes to all-ones queries, whose answers are sliced off.  On CUDA the
+    program is a captured graph (``plancache.PlanCache.graphed``).
+    ``leaf_stage_fn`` is the leaf stage of :func:`lookup_many_planned`:
+    ``(stacked, (1, q) node, (1, q, W) queries) -> ((1, q) found, (1, q)
+    rid)`` on :func:`_as_stack` of the tree.
     """
-    found, rid = lookup_many_planned(_as_stack(tree), queries[None], leaf_stage_fn=leaf_stage_fn)
-    return found[0], rid[0]
+    from . import plancache
+
+    cache = cache or plancache.get_cache()
+    q, w = int(queries.shape[0]), int(queries.shape[1])
+    b = plancache.bucket_for("lookup", q)
+    prog = cache.program(
+        ("lookup", backend_name, b, w) + tuple(program_key_extra),
+        lambda: cache.graphed(_lookup_body(leaf_stage_fn), device=queries.device),
+    )
+    found, rid = prog(tree, plancache.pad_tail(queries, b, MASK32), q)
+    return found[:q], rid[:q]
 
 
 # ---------------------------------------------------------------------------
@@ -450,10 +567,27 @@ def _leaf_keys_many(stacked: BTree, node: torch.Tensor) -> torch.Tensor:
     return stacked.sorted_full[:t].reshape(t * n, w)[lanes.clamp(0, n - 1) + offset]
 
 
+def _lookup_many_body(leaf_stage_fn):
+    """The fused multi-tenant lookup, one program: lanes at or past each
+    tenant's count in ``n_valid`` (a ``(T,)`` tensor) become all-ones
+    queries, then the tenant-major descent and ``leaf_stage_fn``.  Nothing
+    is read back to the host, so on CUDA it is captured as a graph."""
+
+    def prog(stacked, queries, n_valid):
+        lane = torch.arange(queries.shape[1], device=queries.device)
+        live = lane[None, :] < n_valid[:, None]
+        queries = torch.where(live[..., None], queries, torch.full_like(queries, MASK32))
+        return leaf_stage_fn(stacked, _descend_many(stacked, queries), queries)
+
+    return prog
+
+
 def lookup_many_planned(
-    stacked: BTree, queries: torch.Tensor, n_valid=None, *, leaf_stage_fn
+    stacked: BTree, queries: torch.Tensor, n_valid=None, *, leaf_stage_fn,
+    backend_name: str = "torch", program_key_extra: tuple = (), cache=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Fused multi-tenant point lookup over a :func:`stack_trees` arena.
+    """Fused multi-tenant point lookup over a :func:`stack_trees` arena,
+    through the plan cache.
 
     ``queries`` is ``(T_q, q, W)`` (int64 carriers) with ``T_q`` at most
     the arena capacity; tenant ``t``'s block is answered against member
@@ -466,25 +600,40 @@ def lookup_many_planned(
     :data:`NOT_FOUND_RID`, each tenant's row byte-identical to
     :func:`lookup_batch_planned` on that tenant's tree alone.
 
-    The reference pads the query axis to a compile bucket and the tenant
-    axis to the capacity, then slices both off; here only the ``T_q``
-    given tenants and their ``q`` lanes are descended, which answers the
-    kept lanes identically.  The leaf stage is ``leaf_stage_fn(stacked,
-    node, queries) -> (found, rid)`` on the (T, q) leaf nodes the descent
-    chose (``kernels.lookup``'s plain leaf stage, or its kernel on the CUDA
+    As in the reference, the query axis pads to ``bucket_for("lookup_many",
+    q)`` and the tenant axis to the capacity (zero-valid rows), and the
+    program is cached under ``("lookup_many", backend_name, t_cap, bucket,
+    W, tree_geometry(stacked))`` plus ``program_key_extra``, so tenants
+    joining within capacity, batches drifting within a bucket and
+    snapshot churn at one geometry replay one program (a graph on CUDA).
+    The leaf stage is ``leaf_stage_fn(stacked, node, queries) -> (found,
+    rid)`` on the (T, q) leaf nodes the descent chose
+    (``kernels.lookup``'s plain leaf stage, or its kernel on the CUDA
     backend, which gathers no full key but the candidates').
     """
+    from . import plancache
+
+    cache = cache or plancache.get_cache()
     if queries.dim() != 3:
         raise ValueError(f"queries must be (T, q, W), got {tuple(queries.shape)}")
-    t_q, q, _ = (int(s) for s in queries.shape)
+    t_q, q, w = (int(s) for s in queries.shape)
     t_cap = int(stacked.sorted_full.shape[0])
     if t_q > t_cap:
         raise ValueError(f"{t_q} tenant blocks > arena capacity {t_cap}")
-    if n_valid is not None:
+    if n_valid is None:
+        nv = np.full((t_q,), q, np.int64)
+    else:
         nv = np.asarray(n_valid, np.int64).reshape(-1)
         if nv.shape[0] != t_q:
             raise ValueError(f"n_valid has {nv.shape[0]} rows, expected {t_q}")
-        nv = torch.as_tensor(np.minimum(nv, q), device=queries.device)
-        live = torch.arange(q, device=queries.device)[None, :] < nv[:, None]
-        queries = torch.where(live[..., None], queries, torch.full_like(queries, MASK32))
-    return leaf_stage_fn(stacked, _descend_many(stacked, queries), queries)
+    nv_full = np.zeros((t_cap,), np.int64)
+    nv_full[:t_q] = np.minimum(nv, q)
+    b = plancache.bucket_for("lookup_many", q)
+    prog = cache.program(
+        ("lookup_many", backend_name, t_cap, b, w, tree_geometry(stacked))
+        + tuple(program_key_extra),
+        lambda: cache.graphed(_lookup_many_body(leaf_stage_fn), device=queries.device),
+    )
+    qp = plancache.pad_tail(plancache.pad_tail(queries, b, MASK32, dim=1), t_cap, MASK32)
+    found, rid = prog(stacked, qp, nv_full)
+    return found[:t_q, :q], rid[:t_q, :q]

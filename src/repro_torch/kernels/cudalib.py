@@ -11,7 +11,10 @@ root, and loaded with ``ctypes``.  A library whose hash matches is reused.
 one exactly where it launches its kernel (never on its plain-PyTorch CPU
 path), so a run can show which kernels its path went through.  A kernel
 with more than one form also counts each form's launches in
-``LAUNCHES_BY_FORM``.
+``LAUNCHES_BY_FORM``.  A launch made while a CUDA graph is being
+captured runs nothing: inside :func:`recording` it is recorded for the
+graph instead of counted, and :func:`count_replay` adds the record to the
+counts each time the graph replays.
 
 Kernels launch from more than one thread (the multi-tenant engine's
 dispatcher beside a writer's rebuild), so the first build and load of the
@@ -27,12 +30,13 @@ import shutil
 import subprocess
 import threading
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 import torch
 
 __all__ = ["LAUNCHES", "LAUNCHES_BY_FORM", "reset_launches", "build", "lib", "launch",
-           "check_tensor"]
+           "check_tensor", "recording", "count_replay"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -65,6 +69,8 @@ LAUNCHES_BY_FORM = {"dbit": {"positions": 0, "bitmap": 0}}
 _lib: ctypes.CDLL | None = None
 _lib_lock = threading.Lock()
 _count_lock = threading.Lock()
+#: this thread's launch record while it captures a graph
+_capture = threading.local()
 #: (seconds, compiler output) of the build this process did, if any
 last_build: tuple[float, str] | None = None
 
@@ -77,6 +83,31 @@ def reset_launches() -> None:
         for forms in LAUNCHES_BY_FORM.values():
             for form in forms:
                 forms[form] = 0
+
+
+@contextmanager
+def recording():
+    """Record, instead of count, the launches this thread makes inside the
+    block (a graph capture): yields ``{"launches": {kernel: n}, "forms":
+    {kernel: {form: n}}}``."""
+    rec: dict = {"launches": {}, "forms": {}}
+    prev = getattr(_capture, "rec", None)
+    _capture.rec = rec
+    try:
+        yield rec
+    finally:
+        _capture.rec = prev
+
+
+def count_replay(launches: dict, forms: dict) -> None:
+    """Count the launches of one replay of a graph whose capture recorded
+    ``launches`` and ``forms`` (see :func:`recording`)."""
+    with _count_lock:
+        for kernel, k in launches.items():
+            LAUNCHES[kernel] += k
+        for kernel, by_form in forms.items():
+            for form, k in by_form.items():
+                LAUNCHES_BY_FORM[kernel][form] += k
 
 
 def _nvcc() -> str:
@@ -165,13 +196,21 @@ def launch(kernel: str, entry: str, device: torch.device, *args,
            form: str | None = None) -> None:
     """Call C entry ``entry`` on ``device``'s current stream with ``args``
     (tensors pass their data pointer), raise on a CUDA error, and count
-    one launch of ``kernel`` (and of its ``form``, if it has forms)."""
+    one launch of ``kernel`` (and of its ``form``, if it has forms), or
+    record it when this thread is capturing a graph."""
     c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         err = getattr(lib(), entry)(*c_args, stream)
     if err:
         raise RuntimeError(f"{kernel} kernel launch failed with CUDA error {err}")
+    rec = getattr(_capture, "rec", None)
+    if rec is not None:
+        rec["launches"][kernel] = rec["launches"].get(kernel, 0) + 1
+        if form is not None:
+            forms = rec["forms"].setdefault(kernel, {})
+            forms[form] = forms.get(form, 0) + 1
+        return
     with _count_lock:
         LAUNCHES[kernel] += 1
         if form is not None:

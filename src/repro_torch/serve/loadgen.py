@@ -38,9 +38,11 @@ fuses the tenants' queues into one ``lookup_many``).
 Reader threads and the writer share the device's default stream; every
 lookup ends in its copy to the host, which is where a reader waits for
 the device.  The harnesses run on CUDA unless the caller names another
-device.  The reference's reports also carry ``warm_traces``, the
-plan-cache trace delta; the port has no program cache yet (ROADMAP
-Queue 1 item 9), so that field is left out.
+device.  ``run_load``'s and ``run_multitenant_load``'s reports carry
+``warm_traces``, the plan-cache trace delta over the timed window: key
+population and tree geometry stay constant, so warm concurrent serving
+must stay at **zero traces** (on CUDA, no lookup graph is captured
+again; a new epoch is copied into the graph's buffers).
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from repro_torch.core import plancache
 from repro_torch.core.index import _rows_v, _v_rows
 from repro_torch.core.keyformat import KeySet
 from repro_torch.core.pipeline import ReconstructionPipeline
@@ -178,6 +181,7 @@ class LoadReport:
     torn_reads: int
     stale_epochs: int
     epochs_published: int
+    warm_traces: int
     lookups_per_s: float
     p50_us: float
     p90_us: float
@@ -198,6 +202,7 @@ class LoadReport:
             "torn_reads": self.torn_reads,
             "stale_epochs": self.stale_epochs,
             "epochs_published": self.epochs_published,
+            "warm_traces": self.warm_traces,
             "lookups_per_s": self.lookups_per_s,
             "p50_us": self.p50_us,
             "p90_us": self.p90_us,
@@ -462,6 +467,7 @@ def run_load(
         unloaded.append((time.perf_counter() - t0) * 1e6)
     unloaded_p50 = float(np.percentile(np.asarray(unloaded), 50))
 
+    s0 = plancache.cache_stats()
     reports = [
         ReaderReport(reservoir=LatencyReservoir(reservoir_capacity, seed + 10 + i))
         for i in range(n_readers)
@@ -481,6 +487,7 @@ def run_load(
         t.join(timeout=30.0)
     wt.join(timeout=30.0)
     wall = time.perf_counter() - t_run0
+    warm_traces = plancache.cache_stats()["traces"] - s0["traces"]
 
     pcts = pooled_percentiles([rep.reservoir for rep in reports])
     n_requests = sum(rep.n_requests for rep in reports)
@@ -494,6 +501,7 @@ def run_load(
         torn_reads=sum(rep.torn_reads for rep in reports),
         stale_epochs=sum(rep.stale_epochs for rep in reports),
         epochs_published=cell.stats()["n_published"],
+        warm_traces=warm_traces,
         lookups_per_s=n_requests * len(probe_keys) / max(wall, 1e-9),
         unloaded_p50_us=unloaded_p50,
         cell_stats=cell.stats(),
@@ -698,12 +706,10 @@ def run_multitenant_load(
     dispatches.  One writer thread churns the tenants round-robin —
     per-tenant delete+reinsert with epoch-coded rids, key population and
     geometry constant.  Before the timed window every tenant takes one
-    writer cycle and one warm submit.
-
-    The reference's report also carries ``warm_traces``, the plan-cache
-    trace delta; the port has no program cache yet (ROADMAP Queue 1 item
-    9), so that field, and the reference's per-bucket ``lookup_many``
-    warm-up, are left out.
+    writer cycle and one warm submit, and the arena's ``lookup_many``
+    program is run once at every query bucket a fused batch can reach
+    (up to ``max_batch_queries`` plus one batch), so ``warm_traces``, the
+    plan-cache trace delta over the timed window, must be zero.
 
     Every response is verified against its ``(tenant, epoch)`` oracle
     registered before that epoch published (torn check), and its epoch
@@ -852,6 +858,18 @@ def run_multitenant_load(
     # included — the same path the loaded readers pay)
     for t in tenants:
         engine.submit(t, probes[t])
+    # every query bucket a fused batch can reach, traced before the timed
+    # window: a retrace there would stall every tenant in the batch
+    arena0 = registry.arena_of(tenants[0])
+    qcap = max_batch_queries + batch
+    qb = plancache.bucket_for("lookup_many", batch)
+    while True:
+        blk = np.full((1, qb, n_words), 0xFFFFFFFF, np.uint32)
+        backend_obj.lookup_many(arena0.stacked, to_carrier(blk, backend_obj.device),
+                                np.zeros(1, np.int64))
+        if qb >= qcap:
+            break
+        qb *= 2
     unloaded = []
     for _ in range(8):
         t0 = time.perf_counter()
@@ -859,6 +877,7 @@ def run_multitenant_load(
         unloaded.append((time.perf_counter() - t0) * 1e6)
     unloaded_p50 = _percentiles(np.asarray(unloaded), (50,))["p50_us"]
 
+    s0 = plancache.cache_stats()
     threads = [
         threading.Thread(target=reader_loop, args=(i,), daemon=True)
         for i in range(n_readers)
@@ -875,6 +894,7 @@ def run_multitenant_load(
     wt.join(timeout=30.0)
     engine.shutdown()
     wall = time.perf_counter() - t_run0
+    warm_traces = plancache.cache_stats()["traces"] - s0["traces"]
 
     pcts = pooled_percentiles(reservoirs)
     eng_stats = engine.stats()
@@ -891,6 +911,7 @@ def run_multitenant_load(
         "epochs_published": sum(
             cells[t].stats()["n_published"] for t in tenants
         ),
+        "warm_traces": warm_traces,
         "lookups_per_s": counts["requests"] * batch / max(wall, 1e-9),
         "unloaded_p50_us": unloaded_p50,
         "served_per_tenant": eng_stats["served_per_tenant"],

@@ -17,13 +17,10 @@ asserts the invariants that make the fault layer trustworthy:
    rounds);
 2. **no quarantine leak** — bounded transient faults must be absorbed by
    the degradation ladder (retry -> resync -> checkpoint), never end in a
-   quarantined supervisor.
-
-The reference's third invariant — the plan cache traces no new program
-during the steady rounds (its ``steady_traces``) — has no meaning in the
-port yet: nothing here is traced or captured.  ROADMAP Queue 1 item 9
-(the plan cache's programs and their counters) adds it back, and with it
-the report's ``steady_traces`` key.
+   quarantined supervisor;
+3. **zero retraces in steady state** — once the constant-shape churn has
+   warmed every program, the plan cache traces nothing new (the report's
+   ``steady_traces``; on CUDA no lookup graph is captured again).
 
 Every run is reproducible from ``(seed, transport, backend)``; the
 injection ledger is part of the report, so a failure names exactly which
@@ -51,6 +48,7 @@ from pathlib import Path
 
 import numpy as np
 
+from repro_torch.core import plancache
 from repro_torch.core.keyformat import KeySet
 from repro_torch.replication import (
     ChangeLog,
@@ -210,13 +208,21 @@ def run_soak(
             if bad:
                 violations.append(f"replica {i} diverged: {bad}")
 
-    # ---- steady phase: constant-shape rounds on a quiet wire
-    for _ in range(2 + steady_rounds):
+    # ---- steady phase: warm the constant shapes, then demand 0 traces
+    for _ in range(2):
+        prim.publish(_batch(rng, prim))
+        for sup in sups:
+            sup.pump()
+    t0 = plancache.cache_stats()["traces"]
+    for _ in range(steady_rounds):
         prim.publish(_batch(rng, prim))
         for sup in sups:
             out = sup.pump()
             if "error_class" in out:
                 violations.append(f"steady-state pump faulted: {out}")
+    steady_traces = plancache.cache_stats()["traces"] - t0
+    if steady_traces != 0:
+        violations.append(f"steady_state_traces={steady_traces}, want 0")
     for i, sup in enumerate(sups):
         if sup.replica.replica is None:
             continue  # already reported above
@@ -238,6 +244,7 @@ def run_soak(
         "faults_injected": dict(wire.counts),
         "n_killed": n_killed,
         "survivors": len(sups),
+        "steady_traces": int(steady_traces),
         "supervisors": [sup.stats() for sup in sups],
         "violations": violations,
     }
@@ -293,7 +300,8 @@ def main(argv: "list[str] | None" = None) -> int:
             print(
                 f"[{'ok' if ok else 'FAIL'}] seed={seed} "
                 f"transport={rep['transport']} backend={rep['backend']} "
-                f"faults={faults} survivors={rep['survivors']}"
+                f"faults={faults} survivors={rep['survivors']} "
+                f"steady_traces={rep['steady_traces']}"
                 + ("" if ok else f" violations={rep['violations']}")
             )
     if args.json:

@@ -5,7 +5,8 @@ kernel wrapper takes.
   reference package ``repro`` (checked in a fresh interpreter and by a scan
   of the sources);
 * the entry points run on CUDA unless the caller names another device:
-  with no GPU they raise instead of running on the host;
+  with no GPU they raise instead of running on the host, and so does a
+  lookup program of the plan cache built without naming the CPU;
 * a CUDA kernel wrapper given a CPU tensor runs its plain version and
   launches nothing;
 * the kernel library is built and loaded once, however many threads ask
@@ -38,6 +39,7 @@ from repro_torch.core.dbits import compute_dbitmap  # noqa: E402
 from repro_torch.core.index import OnlineIndex  # noqa: E402
 from repro_torch.core.keyformat import KeySet  # noqa: E402
 from repro_torch.core.metadata import meta_from_keys  # noqa: E402
+from repro_torch.core.plancache import PlanCache  # noqa: E402
 from repro_torch.core.pipeline import ReconstructionPipeline  # noqa: E402
 from repro_torch.core.reconstruct import full_key_reconstruct, reconstruct_index  # noqa: E402
 from repro_torch.core.u32 import to_carrier, to_u32  # noqa: E402
@@ -142,6 +144,29 @@ def test_serving_modules_name_neither_jax_nor_reference_anywhere():
     assert not mention.search("see repro_torch.serve.pager")
 
 
+def test_plan_cache_and_its_programs_name_neither_jax_nor_reference_anywhere():
+    """The plan cache and the modules whose bodies it caches name neither
+    JAX's module nor the reference package, not even in a docstring."""
+    mention = re.compile(r"\b(?:import|from)\s+(?:jax|jaxlib|repro)\b(?!_)"
+                         r"|\bjax\.|(?<![\w.])repro\.")
+    for name in ("core/plancache.py", "core/btree.py", "core/pipeline.py", "backends/base.py",
+                 "backends/cuda_backend.py", "backends/torch_backend.py",
+                 "kernels/cudalib.py", "tools/chaos_soak.py"):
+        assert not mention.search((PACKAGE / name).read_text()), name
+
+
+def test_lookup_program_without_gpu_runs_only_where_the_cpu_is_named(no_gpu):
+    from repro_torch.core import plancache
+
+    cache = plancache.PlanCache()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cache.graphed(lambda tree, q, n: (q, n))
+    prog = cache.graphed(lambda tree, q, n: (q[:1] + n, n), device="cpu")
+    out, nv = prog(None, torch.zeros((4, 2), dtype=torch.int64), 3)
+    assert out.tolist() == [[3, 3]] and nv.item() == 3 and not prog.captured
+    assert cache.stats()["traces"] == 1
+
+
 def test_forbidden_import_pattern():
     """The scan's pattern catches the reference and JAX, not the port."""
     assert FORBIDDEN.search("import jax.numpy as jnp")
@@ -168,7 +193,7 @@ def no_gpu(monkeypatch):
     "run_multitenant_load", "multitenant_engine", "online_index_build", "online_index",
     "run_many", "replica", "stream_primary", "stream_primary_untracked", "stream_replica",
     "save_checkpoint", "checkpoint_index", "restore_checkpoint", "run_soak", "chaos_soak_cli",
-    "paged_kv_manager", "run_load", "run_pager_load",
+    "paged_kv_manager", "run_load", "run_pager_load", "lookup_program",
 ])
 def test_default_device_entry_points_raise_without_gpu(no_gpu, entry, tmp_path):
     ks = _keyset()
@@ -208,6 +233,7 @@ def test_default_device_entry_points_raise_without_gpu(no_gpu, entry, tmp_path):
         "run_load": lambda: run_load(n_keys=64, duration_s=0.0),
         "run_pager_load": lambda: run_pager_load(n_pages=8, n_seqs=1, pages_per_seq=1,
                                                  duration_s=0.0),
+        "lookup_program": lambda: PlanCache().graphed(lambda tree, q, n: q),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

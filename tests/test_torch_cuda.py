@@ -488,9 +488,14 @@ def test_cuda_lookup_many_matches_torch_on_the_card(dev, leaf_key_gathers):
     n_valid = [q.shape[1], q.shape[1] - 17, 5]
     queries = to_carrier(q, dev)
     cuda = get_backend("cuda", device=dev)
+    plancache.reset_cache()
     before = cudalib.LAUNCHES["probe_many"]
+    # the first call traces (the eager run) and replays its new graph
     found, rid = cuda.lookup_many(arena.stacked, queries, n_valid)
-    assert cudalib.LAUNCHES["probe_many"] == before + 1
+    assert cudalib.LAUNCHES["probe_many"] == before + 2
+    f2, r2 = cuda.lookup_many(arena.stacked, queries, n_valid)
+    assert cudalib.LAUNCHES["probe_many"] == before + 3
+    assert torch.equal(f2, found) and torch.equal(r2, rid)
     singles = []
     for t in range(3):
         qt = queries[t].clone()
@@ -498,7 +503,8 @@ def test_cuda_lookup_many_matches_torch_on_the_card(dev, leaf_key_gathers):
         singles.append(cuda.lookup(trees[arena.slots[t]], qt))
     assert leaf_key_gathers == []
     f_ref, r_ref = get_backend("torch", device=dev).lookup_many(arena.stacked, queries, n_valid)
-    assert len(leaf_key_gathers) == 1  # the plain stage does gather them
+    # the plain stage does gather them: in its trace and in its capture
+    assert len(leaf_key_gathers) == 2
     assert torch.equal(found, f_ref) and torch.equal(rid, r_ref)
     for t, (f1, r1) in enumerate(singles):
         assert torch.equal(found[t], f1) and torch.equal(rid[t], r1)
@@ -508,6 +514,7 @@ def test_cuda_lookup_many_matches_torch_on_the_card(dev, leaf_key_gathers):
 def test_explicit_flush_engine_on_the_card(dev):
     reg, kss, _ = _arena(dev)
     eng = MultiTenantEngine(reg, get_backend("cuda", device=dev), auto_dispatch=False)
+    plancache.reset_cache()
     out = {}
 
     def ask(t):
@@ -526,7 +533,8 @@ def test_explicit_flush_engine_on_the_card(dev):
         th.join(timeout=30)
     assert not any(th.is_alive() for th in threads) and sorted(out) == [0, 1, 2]
     assert eng.stats()["n_dispatches"] == 1
-    assert cudalib.LAUNCHES["probe_many"] == before + 1
+    # one dispatch: its program's trace (the eager run) and first replay
+    assert cudalib.LAUNCHES["probe_many"] == before + 2
     for t in range(3):
         found, rid, epoch = out[t]
         assert found.all() and epoch == 0
@@ -770,3 +778,213 @@ def test_run_load_on_the_card(dev):
     st = rep.cell_stats
     assert st["acquires"] == st["releases"] and st["pinned"] == 0
     assert cudalib.LAUNCHES["probe"] > before
+
+
+# ---------------------------------------------------------------------------
+# the plan cache's lookup graphs
+# ---------------------------------------------------------------------------
+
+
+def _zipf_like(seed, n, width=64):
+    return rows_to_keyset(np.random.default_rng(seed).integers(97, 123, size=(n, width),
+                                                               dtype=np.uint8))
+
+
+def _lookup_program(b, w, backend="cuda"):
+    return plancache.get_cache().programs[("lookup", backend, b, w)]
+
+
+def _eager(prog, tree, queries, dev):
+    """The program's body run eagerly on the card, on the padded batch."""
+    q = int(queries.shape[0])
+    b = plancache.bucket_for("lookup", q)
+    qp = plancache.pad_tail(queries, b, 0xFFFFFFFF)
+    found, rid = prog.body(tree, qp, torch.tensor(q, device=dev))
+    return found[:q], rid[:q]
+
+
+def _churn(ks, rng, k):
+    """Delete ``k`` rows and insert ``k`` redrawn keys: n, and so the tree's
+    geometry, stays the same."""
+    from repro_torch.core.keyformat import KeySet
+
+    keep = np.ones(ks.n, bool)
+    keep[rng.choice(ks.n, size=k, replace=False)] = False
+    words = rng.integers(97, 123, size=(k, ks.n_words * 4), dtype=np.uint8)
+    delta = rows_to_keyset(words)
+    delta = KeySet(words=delta.words, lengths=delta.lengths,
+                   rids=np.arange(10**6, 10**6 + k, dtype=np.uint32))
+    return keep, delta
+
+
+def test_lookup_graph_replays_equal_eager_across_epochs(dev):
+    """Two same-geometry epochs of run_incremental: each is a tree copy into
+    the graph's buffers, no trace, and the replay answers as the program's
+    body run eagerly and as the plain backend."""
+    ks = _zipf_like(40, 4000)
+    pipe = ReconstructionPipeline(backend="cuda", device=dev)
+    prev = pipe.run(ks)
+    queries = to_carrier(np.concatenate([ks.words[::20], ks.words[1::20] ^ np.uint32(1)]), dev)
+    plancache.reset_cache()
+    found, rid = pipe.backend.lookup(prev.tree, queries)
+    prog = _lookup_program(plancache.bucket_for("lookup", int(queries.shape[0])), 16)
+    assert prog.captured and prog.captures == 1
+    f_e, r_e = _eager(prog, prev.tree, queries, dev)
+    assert torch.equal(found, f_e) and torch.equal(rid, r_e)
+    plain = get_backend("torch", device=dev)
+    plain.lookup(prev.tree, queries)  # the plain backend's own program, traced once
+    rng, base = np.random.default_rng(41), ks
+    lookups_traced = plancache.cache_stats()["per_op"]["lookup"]["traces"]
+    for epoch in range(2):
+        keep, delta = _churn(base, rng, 40)
+        prev, base = pipe.run_incremental(prev, base, delta, keep_rows=keep)
+        copies = prog.tree_copies
+        found, rid = pipe.backend.lookup(prev.tree, queries)
+        assert prog.tree_copies == copies + 1 and prog.captures == 1
+        f_e, r_e = _eager(prog, prev.tree, queries, dev)
+        f_t, r_t = plain.lookup(prev.tree, queries)
+        assert torch.equal(found, f_e) and torch.equal(rid, r_e), epoch
+        assert torch.equal(found, f_t) and torch.equal(rid, r_t), epoch
+    assert plancache.cache_stats()["per_op"]["lookup"]["traces"] == lookups_traced
+
+
+def test_lookup_graph_never_trusts_a_reused_address(dev):
+    """A tree is freed and another of the same shapes lands at its very
+    addresses (its arrays are written into the freed tree's storage): the
+    graph goes by the tree object, not by address, so it copies the new
+    tree in and answers the new tree's rids."""
+    pipe = ReconstructionPipeline(backend="cuda", device=dev)
+    ks_a, ks_b = _zipf_like(50, 3000), _zipf_like(51, 3000)
+    queries = to_carrier(np.concatenate([ks_a.words[:100], ks_b.words[:100]]), dev)
+    plancache.reset_cache()
+    tree_a, tree_b = pipe.run(ks_a).tree, pipe.run(ks_b).tree
+    f_a, _ = pipe.backend.lookup(tree_a, queries)
+    assert bool(f_a[:100].all())
+    prog = _lookup_program(256, 16)
+    moved = dataclasses.replace(tree_a)
+    for dst, src in zip(plancache._tree_tensors(moved), plancache._tree_tensors(tree_b)):
+        dst.copy_(src)
+    ptrs = [t.data_ptr() for t in plancache._tree_tensors(tree_a)]
+    del tree_a
+    assert [t.data_ptr() for t in plancache._tree_tensors(moved)] == ptrs
+    captures, copies = prog.captures, prog.tree_copies
+    f_b, r_b = pipe.backend.lookup(moved, queries)
+    assert prog.captures == captures and prog.tree_copies == copies + 1
+    f_t, r_t = get_backend("torch", device=dev).lookup(tree_b, queries)
+    assert torch.equal(f_b, f_t) and torch.equal(r_b, r_t)
+    assert bool(f_b[100:].all())
+    np.testing.assert_array_equal(to_u32(r_b[100:]), ks_b.rids[:100])
+
+
+def test_lookup_graph_readers_beside_a_capturing_writer(dev):
+    """Eight reader threads replay the lookup graph of their pinned epoch
+    while a writer publishes same-geometry epochs and one of a new
+    geometry, capturing its graph: every answer is its epoch's."""
+    pipe = ReconstructionPipeline(backend="cuda", device=dev)
+    plain = get_backend("torch", device=dev)
+    sets = [_zipf_like(60 + i, 3000) for i in range(3)] + [_zipf_like(70, 3500)]
+    queries = to_carrier(np.concatenate([s.words[:64] for s in sets]), dev)
+    trees = [pipe.run(s).tree for s in sets]
+    want = [tuple(x.cpu() for x in plain.lookup(t, queries)) for t in trees]
+    plancache.reset_cache()
+    cell = SnapshotCell()
+    published, results = [], {}  # the results stay alive, so ids stay unique
+
+    def publish(i):
+        res = pipe.run(sets[i])
+        published.append(res)
+        results[id(res.tree)] = i
+        cell.publish(res)
+
+    publish(0)
+    pipe.backend.lookup(cell.current.tree, queries)
+    stop = threading.Event()
+    errors, served = [], [0] * 8
+
+    def reader(k):
+        try:
+            while not stop.is_set():
+                pin = cell.acquire()
+                try:
+                    f, r = pipe.backend.lookup(pin.tree, queries)
+                    i = results[id(pin.tree)]
+                finally:
+                    pin.release()
+                if not (torch.equal(f.cpu(), want[i][0]) and torch.equal(r.cpu(), want[i][1])):
+                    errors.append(f"reader {k}: wrong answers for set {i}")
+                served[k] += 1
+        except Exception as e:  # surfaced below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=reader, args=(k,)) for k in range(8)]
+    for th in threads:
+        th.start()
+    try:
+        for i in (1, 2, 3, 0):
+            time.sleep(0.3)
+            publish(i)
+            # the writer captures the new geometry's graph itself
+            pipe.backend.lookup(cell.current.tree, queries)
+        time.sleep(0.3)
+    finally:
+        stop.set()
+        for th in threads:
+            th.join(timeout=60)
+    assert not any(th.is_alive() for th in threads)
+    assert errors == [], errors[:3]
+    assert all(n > 0 for n in served)
+    assert plancache.get_cache().captures >= 2  # two geometries
+
+
+def test_evicted_lookup_graph_frees_its_pool(dev):
+    """An LRU-evicted lookup graph and a reset cache give back every byte
+    their buffers and pools held."""
+    pipe = ReconstructionPipeline(backend="cuda", device=dev)
+    ks = _zipf_like(80, 50_000)
+    tree = pipe.run(ks).tree
+    small = to_carrier(ks.words[:200], dev)
+    large = to_carrier(ks.words[:400], dev)
+    torch.cuda.synchronize(dev)
+    with plancache.scoped_cache(plancache.PlanCache()) as alone:
+        pipe.backend.lookup(tree, large)
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        alone.reset()
+        torch.cuda.synchronize(dev)
+        large_bytes = base - torch.cuda.memory_allocated(dev)
+    assert large_bytes > 6_400_000  # at least the copy of sorted_full
+    m0 = torch.cuda.memory_allocated(dev)
+    cache = plancache.PlanCache(max_programs=1)
+    with plancache.scoped_cache(cache):
+        pipe.backend.lookup(tree, small)
+        first = next(iter(cache.programs.values()))
+        assert first.captured and torch.cuda.memory_allocated(dev) > m0
+        pipe.backend.lookup(tree, large)  # another bucket: evicts the first
+        assert cache.evictions == 1 and not first.captured
+        torch.cuda.synchronize(dev)
+        held = torch.cuda.memory_allocated(dev) - m0
+        assert abs(held - large_bytes) <= large_bytes // 100, (held, large_bytes)
+        assert cache.graph_stats()["graphs"] == 1
+        cache.reset()
+        torch.cuda.synchronize(dev)
+        assert torch.cuda.memory_allocated(dev) == m0
+
+
+def test_lookup_graph_replays_count_their_launches(dev):
+    """A replay runs kernels Python never calls: the graph adds the
+    launches its capture recorded, one probe launch per lookup."""
+    pipe = ReconstructionPipeline(backend="cuda", device=dev)
+    ks = _zipf_like(90, 3000)
+    tree = pipe.run(ks).tree
+    queries = to_carrier(ks.words[:300], dev)
+    plancache.reset_cache()
+    cudalib.reset_launches()
+    pipe.backend.lookup(tree, queries)  # trace + capture + first replay
+    assert cudalib.LAUNCHES["probe"] == 2
+    prog = _lookup_program(512, 16)
+    assert prog.replay_launches == ({"probe": 1}, {})
+    assert prog.pool_bytes > 0 and prog.buffer_bytes > tree.sorted_full.numel() * 8
+    for _ in range(3):
+        pipe.backend.lookup(tree, queries)
+    assert cudalib.LAUNCHES["probe"] == 5
+    assert plancache.get_cache().replays == 4

@@ -188,8 +188,11 @@ def test_meta_on_rebuild_from_bitmap_words_matches_reference(case):
 
 
 def _count_passes(monkeypatch) -> dict:
-    """Spy on the "cuda" backend's two dbit hooks (their CPU wrappers)."""
+    """Spy on the "cuda" backend's two dbit hooks (their CPU wrappers).
+    A cached program keeps the hooks it was built with, so the spies run
+    in a fresh plan cache."""
     calls = {"bitmap": [], "positions": []}
+    monkeypatch.setattr(TP, "_GLOBAL", TP.PlanCache())
 
     def bitmap(words):
         calls["bitmap"].append(tuple(words.shape))

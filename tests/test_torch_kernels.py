@@ -27,6 +27,7 @@ from repro.kernels.pext import ops as r_pext  # noqa: E402
 from repro_torch.core import btree as TB  # noqa: E402
 from repro_torch.core import compress as TC  # noqa: E402
 from repro_torch.core import metadata as TM  # noqa: E402
+from repro_torch.core import plancache as TP  # noqa: E402
 from repro_torch.core.u32 import to_carrier, to_u32  # noqa: E402
 from repro_torch.kernels.bitonic import block_sort_plain  # noqa: E402
 from repro_torch.kernels.bitonic.ref import block_sort_ref  # noqa: E402
@@ -263,7 +264,8 @@ def test_gather_windows_plain_matches_reference_kernel(m, w, pk):
 def test_build_btree_with_kernel_hooks_matches_reference(n, w, mask):
     """``build_btree`` with the pk-window kernel's two forms as its hooks
     (their plain versions on the CPU) against the reference's tree, array
-    for array; every level's window goes through the row-index form."""
+    for array; every level's window goes through the row-index form, over
+    the bucket-padded table (a level program's operand)."""
     words = _keys(n + 7, n, w, mask)
     rids = np.random.default_rng(n).permutation(n).astype(np.uint32)
     lengths = np.full(n, w * 4, np.int32)
@@ -289,7 +291,7 @@ def test_build_btree_with_kernel_hooks_matches_reference(n, w, mask):
 
     def slice_fn(words_, starts, pk, rows_):
         calls["slice"] += 1
-        assert words_.shape[0] == n and rows_.shape == starts.shape
+        assert words_.shape[0] == TP.bucket_for("build", n) and rows_.shape == starts.shape
         return pk_windows(words_, starts, pk, rows_)
 
     got = TB.build_btree(_t(r_comp), torch.as_tensor(np.asarray(r_rows, np.int64)), t_meta,

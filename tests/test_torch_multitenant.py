@@ -525,6 +525,6 @@ def test_multitenant_load_smoke(slo):
     assert rep["torn_reads"] == 0 and rep["stale_epochs"] == 0
     assert rep["errors"] == []
     assert rep["n_requests"] > 0 and set(rep["served_per_tenant"]) == {0, 1}
-    assert rep["epochs_published"] > 2 and "warm_traces" not in rep
+    assert rep["epochs_published"] > 2 and rep["warm_traces"] == 0
     if slo:
         assert rep["slo"] is not None and set(rep["slo"]) == {0, 1}
