@@ -150,7 +150,8 @@ device or any phase fails:
    error.  Each rebuild's wall and path, the gets per second and the
    percentiles are printed;
 15. kernel report: each kernel's launches on the main paths (phases 3, 5,
-   6, 7, 8, 9, 10, 11, 12, 13 and 14, each counted from 0; a lookup graph's
+   6, 7, 8, 9, 10, 11, 12, 13, 14 and 16, each counted from 0; phase 16's
+   summed over its ranks; a lookup graph's
    replay counts the launches its capture recorded), its device time at the
    main path's
    shapes (and its time per call, host launch included), its plain
@@ -165,7 +166,26 @@ device or any phase fails:
    refresh's and at meta_from_keys' sorted full keys, with its launches
    by form; bitonic also in the stacked form of ``run_many`` (one launch
    over the members' whole blocks) beside the plain network member by
-   member.
+   member;
+16. distributed (run before the report, which counts its launches):
+   ``repro_torch.tools.rankgroup`` starts four gloo ranks that share the
+   card; each loads the inputs this process wrote as ``.npy`` files (phase
+   3's keyset, phase 6's delta, delete mask and union meta, phase 4's
+   first batch) and runs the ``"distributed"`` backend: phase 3's ``run``
+   at ``--n-keys`` (unchunked: the sample sort, its two exchanges timed
+   apart, retries counted), phase 6's ``run_incremental`` (the owner-routed
+   merge), the 2^18-query batch through the routed lookup (at least two
+   ranks answer), ``lookup_many`` over eight ``[mt_load]``-shaped tenants
+   (2^17 four-word keys; two a rank), ``run_many`` over eight disjoint
+   262,144-key parts of the slice with phase 3's meta (two a rank), and
+   the reference's skewed overflow input at capacity 0.5 (overflow
+   reported, then retried to the sorted order).  Every output's SHA-256
+   digest equals the ``"cuda"`` result's and every other rank's; each
+   rank's sort wall, exchange bytes beside the bytes of the same exchange
+   with 16-word full keys, retries and peak memory are printed, labelled
+   as gloo over host loopback with four ranks on one card.  Then a
+   one-rank NCCL group in this process runs the slice through
+   ``"distributed"``, equal to phase 3.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -173,8 +193,11 @@ The last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import atexit
 import dataclasses
+import hashlib
 import json
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -228,7 +251,8 @@ from repro_torch.replication import replica as replica_mod  # noqa: E402
 from repro_torch.replication.stream import _state_like  # noqa: E402
 from repro_torch.tools.chaos_soak import run_soak  # noqa: E402
 from repro_torch.serve import MultiTenantEngine, TenantRegistry  # noqa: E402
-from repro_torch.serve.loadgen import run_load, run_multitenant_load, run_pager_load  # noqa: E402
+from repro_torch.serve.loadgen import (  # noqa: E402
+    _probe_keyset_exact, run_load, run_multitenant_load, run_pager_load)
 from repro_torch.serve.pager import PagedKVManager  # noqa: E402
 
 #: H100 SXM HBM3 rate (NVIDIA data sheet), for the bytes bound
@@ -272,6 +296,13 @@ PAGER_TOKENS = 16
 PAGER_SEQS = 4000
 PAGER_SEQ_PAGES = 32
 PAGER_ROUNDS = 10
+#: distributed: gloo ranks on the one card, [mt_load]-shaped tenants, and
+#: run_many's disjoint parts of the slice
+DIST_RANKS = 4
+DIST_TENANTS = 8
+DIST_TENANT_KEYS = 1 << 17
+DIST_PARTS = 8
+DIST_PART_KEYS = 262_144
 
 #: kernel -> (CUDA source, the TPU kernel it replaces)
 KERNELS = {
@@ -302,6 +333,8 @@ PATH_KERNELS = {
     "pager": ("pext", "bitonic_block_sort", "merge_rank", "pk_window", "dbit", "probe"),
     "plancache": ("pext", "bitonic_block_sort", "merge_rank", "pk_window", "dbit", "probe",
                   "probe_many"),
+    "distributed": ("pext", "bitonic_block_sort", "merge_rank", "pk_window", "dbit", "probe",
+                    "probe_many"),
 }
 
 
@@ -2154,6 +2187,273 @@ def pager_phase(args, dev, launches: dict) -> None:
           f"run has no torn read, stale epoch or error; {card_line()}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the distributed backend, four gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+def digest(t) -> str:
+    """SHA-256 of a tensor or array as u32 bytes (flags as 0/1 words)."""
+    a = t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+    return hashlib.sha256(np.ascontiguousarray(a.astype(np.uint32)).tobytes()).hexdigest()
+
+
+def result_digests(res) -> dict:
+    """Digests of a result's sorted run, row and rid permutations, every
+    tree array and the refreshed meta: what ``results_equal`` compares."""
+    out = {name: digest(getattr(res, name)) for name in ("comp_sorted", "row_sorted",
+                                                         "rid_sorted")}
+    out.update({f"tree.{k}": digest(v) for k, v in tree_arrays(res.tree).items()})
+    out.update({f"meta.{f}": digest(getattr(res.meta, f))
+                for f in ("dbitmap", "varbitmap", "refkey")})
+    return out
+
+
+def dist_tenants(seed: int) -> list:
+    """``[mt_load]``'s eight tenants: 2^17 distinct masked four-word keys
+    each, drawn as ``run_multitenant_load`` draws them."""
+    return [_probe_keyset_exact(np.random.default_rng(seed + 1000 * (t + 1)),
+                                DIST_TENANT_KEYS, 4) for t in range(DIST_TENANTS)]
+
+
+def dist_parts(keyset: KeySet) -> list:
+    """Eight disjoint parts of phase 3's keyset (262,144 keys each at full
+    size)."""
+    m = min(DIST_PART_KEYS, keyset.n // DIST_PARTS)
+    return [KeySet(words=keyset.words[i * m:(i + 1) * m],
+                   lengths=keyset.lengths[i * m:(i + 1) * m],
+                   rids=keyset.rids[i * m:(i + 1) * m]) for i in range(DIST_PARTS)]
+
+
+def skewed_input(n: int = 4 * 1024) -> tuple[np.ndarray, np.ndarray]:
+    """The reference's overflow input (``tests/test_pipeline.py:171-200``):
+    nearly every key in one bucket."""
+    rng = np.random.default_rng(0)
+    words = np.zeros((n, 2), dtype=np.uint32)
+    words[: n - 8, 1] = 1
+    words[n - 8:, 0] = rng.integers(1, 2**31, 8).astype(np.uint32)
+    return words, np.arange(n, dtype=np.uint32)
+
+
+def dist_rank(rank: int, p: int, data_dir: str, seed: int) -> dict:
+    """One rank of phase 16 (runs in a spawned process, on its current
+    CUDA device): the main paths through the ``"distributed"`` backend on
+    the inputs the parent wrote, each output as digests, with the
+    backend's ``last_info``, walls, peak memory and kernel launches."""
+    from repro_torch.core.distsort import sample_sort
+    from repro_torch.core.metadata import DSMeta
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cudalib.lib()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    d = Path(data_dir)
+
+    def load(name):
+        return np.load(d / f"{name}.npy")
+
+    keyset = KeySet(words=load("words"), lengths=load("lengths"), rids=load("rids"))
+    meta_of = {pre: DSMeta(dbitmap=load(f"{pre}_dbitmap"), varbitmap=load(f"{pre}_varbitmap"),
+                           refkey=load(f"{pre}_refkey"), n_words=keyset.n_words)
+               for pre in ("union", "slice")}
+    out: dict = {"digests": {}, "info": {}, "walls": {}}
+    cudalib.reset_launches()
+    pipe = ReconstructionPipeline(backend="distributed", chunk_threshold=1 << 24, device=dev)
+    be = pipe.backend
+
+    # 1. run: the sample sort at --n-keys, unchunked
+    t0 = time.perf_counter()
+    res = pipe.run(keyset)
+    out["walls"]["run_s"] = time.perf_counter() - t0
+    out["walls"]["run_timings_s"] = {k: res.timings[k] for k in ("meta", "extract", "sort",
+                                                                  "build", "refresh_meta")}
+    out["sample_sort"] = dict(be.last_timings)
+    out["sort_rows"] = {"exchange_rows": be.last_timings["exchange_bytes"]
+                        // 4 // (int(res.comp_sorted.shape[1]) + 2)}
+    out["info"]["run"] = dict(be.last_info)
+    out["digests"]["run"] = result_digests(res)
+
+    # 2. run_incremental on phase 6's delta: the routed merge
+    delta = KeySet(words=load("delta_words"), lengths=load("delta_lengths"),
+                   rids=load("delta_rids"))
+    prev = pipe.run(keyset, meta=meta_of["union"])
+    t0 = time.perf_counter()
+    inc, _ = pipe.run_incremental(prev, keyset, delta, keep_rows=load("keep"),
+                                  meta=meta_of["union"])
+    out["walls"]["incremental_s"] = time.perf_counter() - t0
+    out["info"]["incremental"] = dict(be.last_info, incremental=inc.stats["incremental"])
+    out["digests"]["incremental"] = result_digests(inc)
+    del prev, inc
+
+    # 3. the 2^18-query batch through the routed lookup
+    q = to_carrier(load("queries"), dev)
+    be.lookup(res.tree, q)  # capture
+    sync()
+    t0 = time.perf_counter()
+    found, rid = be.lookup(res.tree, q)
+    sync()
+    out["walls"]["lookup_s"] = time.perf_counter() - t0
+    out["info"]["lookup"] = dict(be.last_info)
+    out["digests"]["lookup"] = {"found": digest(found), "rid": digest(rid)}
+    del res, found, rid, q
+    plancache.reset_cache()  # the 2^18 graph's buffers and pool
+
+    # 4. lookup_many over eight tenants, two a rank
+    trees = [pipe.run(ks).tree for ks in dist_tenants(seed)]
+    stacked = btree.stack_trees(trees)
+    del trees
+    tq = to_carrier(load("tenant_queries"), dev)
+    t0 = time.perf_counter()
+    found, rid = be.lookup_many(stacked, tq)
+    sync()
+    out["walls"]["lookup_many_s"] = time.perf_counter() - t0
+    out["info"]["lookup_many"] = dict(be.last_info)
+    out["digests"]["lookup_many"] = {"found": digest(found), "rid": digest(rid)}
+    del stacked, found, rid, tq
+    plancache.reset_cache()
+
+    # 5. run_many over eight parts of the slice, two a rank
+    t0 = time.perf_counter()
+    many = pipe.run_many(dist_parts(keyset), [meta_of["slice"]] * DIST_PARTS)
+    out["walls"]["run_many_s"] = time.perf_counter() - t0
+    out["info"]["run_many"] = dict(be.last_info, batched=[r.stats.get("batched") for r in many])
+    out["digests"]["run_many"] = [result_digests(r) for r in many]
+    del many
+
+    # 6. the skewed input at capacity 0.5: reported, then retried
+    words_s, rows_s = skewed_input()
+    raw = sample_sort(to_carrier(words_s, dev), to_carrier(rows_s, dev), capacity_factor=0.5)
+    skew_be = get_backend("distributed", device=dev, capacity_factor=0.5)
+    sk, sr = skew_be.sort(to_carrier(words_s, dev), to_carrier(rows_s, dev))
+    out["info"]["skew"] = dict(skew_be.last_info, raw_overflow=raw.overflow)
+    out["digests"]["skew"] = {"keys": digest(sk), "rows": digest(sr)}
+
+    sync()
+    out["launches"] = path_launches()
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    return out
+
+
+def distributed_phase(args, dev, res, keyset, data: dict, launches: dict) -> None:
+    """Phase 16: the ``"distributed"`` backend.  Four gloo ranks share the
+    card (``repro_torch.tools.rankgroup``) and run the slice, phase 6's
+    incremental fold, phase 4's lookup batch, ``lookup_many`` over eight
+    ``[mt_load]``-shaped tenants, ``run_many`` over eight parts of the
+    slice and the skewed overflow input, each equal by digest to the
+    ``"cuda"`` results and to every other rank's; then a one-rank NCCL
+    group in this process runs the slice, equal to phase 3."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from repro_torch.tools.rankgroup import run_group
+
+    t_phase = time.perf_counter()
+    d = data["dir"]
+    want = data["digests"]
+    # the "cuda" results the ranks are held to, beyond phases 3, 4 and 6
+    cuda_pipe = ReconstructionPipeline(backend="cuda", chunk_threshold=1 << 24, device=dev)
+    tenants = dist_tenants(args.seed)
+    rng = np.random.default_rng(args.seed + 41)
+    tq = np.stack([make_queries(ks.words, rng, TENANT_QUERIES, ks.rids)[0] for ks in tenants])
+    np.save(d / "tenant_queries.npy", tq)
+    stacked = btree.stack_trees([cuda_pipe.run(ks).tree for ks in tenants])
+    found, rid = cuda_pipe.backend.lookup_many(stacked, to_carrier(tq, dev))
+    want["lookup_many"] = {"found": digest(found), "rid": digest(rid)}
+    del stacked, found, rid
+    want["run_many"] = [result_digests(r) for r in cuda_pipe.run_many(
+        dist_parts(keyset), [res.meta] * DIST_PARTS)]
+    words_s, rows_s = skewed_input()
+    order = np.lexsort(tuple(np.concatenate([words_s, rows_s[:, None]], axis=1).T[::-1]))
+    want["skew"] = {"keys": digest(words_s[order]), "rows": digest(rows_s[order])}
+    for f in ("dbitmap", "varbitmap", "refkey"):
+        np.save(d / f"slice_{f}.npy", getattr(res.meta, f))
+    del cuda_pipe
+    # give the ranks the card: drop this process's graphs and cached blocks
+    plancache.reset_cache()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = run_group(dist_rank, DIST_RANKS, str(d), args.seed, timeout=120.0, deadline=600.0)
+    group_wall = time.perf_counter() - t0
+    acc: dict = {}
+    for r, out in enumerate(ranks):
+        add_launches(acc, out["launches"])
+        for case, got in out["digests"].items():
+            check(got == want[case], f"rank {r}: {case} differs from the cuda result")
+            check(got == ranks[0]["digests"][case], f"rank {r}: {case} differs from rank 0")
+        info = out["info"]
+        check(info["run"]["mesh_devices"] == DIST_RANKS and info["run"]["overflow"] == 0,
+              f"rank {r}: run {info['run']}")
+        check(info["incremental"]["incremental"] is True
+              and sum(info["incremental"]["delta_routed"]) == data["n_delta"],
+              f"rank {r}: incremental {info['incremental']}")
+        routed = info["lookup"]["lookup_routed"]
+        check(sum(routed) == BATCH and sum(1 for c in routed if c) >= 2,
+              f"rank {r}: lookup routed {routed}")
+        check(info["lookup_many"]["tenants_per_shard"] == DIST_TENANTS // DIST_RANKS,
+              f"rank {r}: lookup_many {info['lookup_many']}")
+        check(info["run_many"]["batch_per_shard"] == DIST_PARTS // DIST_RANKS
+              and info["run_many"]["batched"] == [DIST_PARTS] * DIST_PARTS,
+              f"rank {r}: run_many {info['run_many']}")
+        skew = info["skew"]
+        check(skew["raw_overflow"] > 0 and skew["overflow"] == 0
+              and skew["capacity_retries"] >= 1, f"rank {r}: skewed input {skew}")
+        ss, rows = out["sample_sort"], out["sort_rows"]["exchange_rows"]
+        line = {
+            "rank": r, "run_wall_s": out["walls"]["run_s"],
+            "run_timings_s": out["walls"]["run_timings_s"],
+            "sample_sort_s": ss["sort_s"], "spread_exchange_s": ss["spread_s"],
+            "spread_bytes": ss["spread_bytes"], "exchange_s": ss["exchange_s"],
+            "exchange_bytes": ss["exchange_bytes"],
+            # the same exchange with the 16-word full keys: rows x (W + rid + valid)
+            "exchange_bytes_full_keys": rows * (keyset.n_words + 2) * 4,
+            "gather_s": ss["gather_s"],
+            "capacity_retries": info["run"]["capacity_retries"],
+            "capacity_factor": info["run"]["capacity_factor"],
+            "incremental_s": out["walls"]["incremental_s"],
+            "delta_routed": info["incremental"]["delta_routed"],
+            "lookup_s": out["walls"]["lookup_s"], "lookup_routed": routed,
+            "lookup_many_s": out["walls"]["lookup_many_s"],
+            "run_many_s": out["walls"]["run_many_s"],
+            "skew_capacity_retries": skew["capacity_retries"],
+            "skew_overflow_at_0.5": skew["raw_overflow"], "peak_gib": out["peak_gib"],
+        }
+        print(f"[distributed] {json.dumps(line)}", flush=True)
+
+    # one rank of NCCL in this process: p == 1, the slice == phase 3
+    nccl_dir = Path(tempfile.mkdtemp(prefix="nccl-", dir=d))
+    dist.init_process_group("nccl", init_method=f"file://{nccl_dir / 'rendezvous'}",
+                            world_size=1, rank=0, timeout=timedelta(seconds=120))
+    try:
+        with counted(acc):
+            pipe_n = ReconstructionPipeline(backend="distributed", chunk_threshold=1 << 24,
+                                            device=dev)
+            check(pipe_n.backend.p == 1, "the NCCL group is not one rank")
+            t0 = time.perf_counter()
+            res_n = pipe_n.run(keyset)
+            nccl_wall = time.perf_counter() - t0
+        results_equal(res_n, res, "one-rank NCCL group vs cuda")
+        check(res_n.stats["mesh_devices"] == 1 and res_n.stats["overflow"] == 0,
+              f"NCCL run stats {res_n.stats}")
+    finally:
+        dist.destroy_process_group()
+    del res_n, pipe_n
+    launches["distributed"] = acc
+    check_launches("distributed", acc)
+    summary = {
+        "ranks": DIST_RANKS, "transport": "gloo over host loopback, four ranks sharing one card",
+        "group_wall_s": group_wall, "nccl_one_rank_run_s": nccl_wall,
+        "phase_s": time.perf_counter() - t_phase, "launches": acc,
+    }
+    print(f"[distributed] {json.dumps(summary)}", flush=True)
+    print(f"[distributed] {DIST_RANKS} gloo ranks: run, run_incremental, the routed lookup, "
+          "lookup_many, run_many and the skewed retry == cuda on every rank; one NCCL rank's "
+          "run == phase 3", flush=True)
+
+
 def main(argv=None) -> int:
     """Run the phases on CUDA device 0."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2257,6 +2557,12 @@ def main(argv=None) -> int:
     results_equal(full, ref_pipe.run(keyset, full_keys=True), "full keys, cuda vs torch")
     del full, ref_pipe
     print("[slice] sorted run, permutation, tree and meta == torch backend", flush=True)
+    # phase 16's ranks read their inputs from here and are held to these
+    dist_dir = Path(tempfile.mkdtemp(prefix="chip-smoke-dist-"))
+    atexit.register(shutil.rmtree, dist_dir, True)
+    for name, a in (("words", keyset.words), ("lengths", keyset.lengths), ("rids", keyset.rids)):
+        np.save(dist_dir / f"{name}.npy", a)
+    dist_data = {"dir": dist_dir, "digests": {"run": result_digests(res)}}
 
     # -- 4. lookups ------------------------------------------------------------
     torch_backend = get_backend("torch", device=dev)
@@ -2268,6 +2574,8 @@ def main(argv=None) -> int:
         check(same(found, f_ref) and same(rid, r_ref), "lookup differs from torch")
     print(f"[lookup] {N_BATCHES} x {BATCH} queries: every hit returns its rid, "
           f"every miss NOT_FOUND_RID, == torch backend", flush=True)
+    np.save(dist_dir / "queries.npy", query_batches[0][0])
+    dist_data["digests"]["lookup"] = {"found": digest(answers[0][0]), "rid": digest(answers[0][1])}
     traced = profile_slice(pipe, keyset, res.tree, to_carrier(query_batches[0][0], dev),
                            args.log_dir)
     print(f"[profile] {json.dumps(traced)}", flush=True)
@@ -2367,6 +2675,12 @@ def main(argv=None) -> int:
     folded_wall = time.perf_counter() - t1
     results_equal(inc, full_inc, "incremental vs full run over the folded set")
     del full_inc
+    for name, a in (("delta_words", delta.words), ("delta_lengths", delta.lengths),
+                    ("delta_rids", delta.rids), ("keep", keep), ("union_dbitmap", meta.dbitmap),
+                    ("union_varbitmap", meta.varbitmap), ("union_refkey", meta.refkey)):
+        np.save(dist_dir / f"{name}.npy", a)
+    dist_data["digests"]["incremental"] = result_digests(inc)
+    dist_data["n_delta"] = nd
     torch_pipe = ReconstructionPipeline(backend="torch", device=dev)
     results_equal(inc, torch_pipe.run_incremental(
         torch_pipe.run(keyset, meta=meta), keyset, delta, keep_rows=keep, meta=meta)[0],
@@ -2423,6 +2737,10 @@ def main(argv=None) -> int:
 
     # -- 14. pager: the serving page table, its standby and its load run --------
     pager_phase(args, dev, launches)
+
+    # -- 16. distributed: four gloo ranks on the card, one NCCL rank here -------
+    # (before the report, which counts its launches)
+    distributed_phase(args, dev, res, keyset, dist_data, launches)
 
     # -- 15. kernel report at the main paths' shapes -----------------------------
     b = plancache.bucket(n)

@@ -9,6 +9,7 @@ from .base import (
 )
 from . import torch_backend  # noqa: F401  (self-registers "torch")
 from . import cuda_backend  # noqa: F401  (self-registers "cuda")
+from . import distributed  # noqa: F401  (self-registers "distributed")
 
 __all__ = [
     "ExecutionBackend",

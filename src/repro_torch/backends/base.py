@@ -73,13 +73,15 @@ def register_backend(name: str) -> Callable[[type], type]:
     return deco
 
 
-def get_backend(name: str, device=None) -> "ExecutionBackend":
-    """Instantiate a registered backend on ``device`` (CUDA unless named)."""
+def get_backend(name: str, device=None, **opts) -> "ExecutionBackend":
+    """Instantiate a registered backend on ``device`` (CUDA unless named);
+    ``opts`` go to its constructor (e.g. ``capacity_factor`` for
+    ``"distributed"``)."""
     if name not in _REGISTRY:
         raise KeyError(
             f"unknown backend {name!r}; registered: {sorted(_REGISTRY)}"
         )
-    return _REGISTRY[name](device=device)
+    return _REGISTRY[name](device=device, **opts)
 
 
 def available_backends() -> list[str]:

@@ -3,9 +3,12 @@
 # plans, DS-metadata, the partial-key B+tree, the pipeline and the online
 # index.  Modules are imported where they are used (the pipeline imports
 # the backends, which import these modules back), so ``OnlineIndex`` is
-# resolved on first access.
+# resolved on first access.  ``distsort`` (the sample sort over a process
+# group) imports none of them at import time, so it is exported directly.
 
-__all__ = ["OnlineIndex"]
+from . import distsort  # noqa: F401
+
+__all__ = ["OnlineIndex", "distsort"]
 
 
 def __getattr__(name):

@@ -9,7 +9,9 @@ One pipeline, four explicit stages — ``extract``, ``sort``, ``build``,
 ``refresh_meta`` — with per-stage wall timings (the paper's Figure 9
 breakdown) and per-run stats.  The stages dispatch to an
 ``ExecutionBackend`` (``repro_torch.backends``): ``torch`` (the plain
-oracle) or ``cuda`` (the hand-written kernels).  By default every stage
+oracle), ``cuda`` (the hand-written kernels) or ``distributed`` (the
+sample sort over a ``torch.distributed`` group, each rank's stages on
+``cuda`` or ``torch``).  By default every stage
 ends in a device synchronize, so each timing covers the stage's device
 work; ``async_dispatch`` syncs once at the end instead.
 
@@ -127,8 +129,8 @@ class ReconstructionPipeline:
 
     Parameters
     ----------
-    backend:       a registered backend name (``"cuda"``, ``"torch"``) or
-                   an ``ExecutionBackend`` instance.
+    backend:       a registered backend name (``"cuda"``, ``"torch"``,
+                   ``"distributed"``) or an ``ExecutionBackend`` instance.
     config:        B-tree geometry.
     chunk_threshold: key counts above this take the chunked large-N sort:
                    ``chunk_size`` chunks, each sorted on its own, folded
@@ -149,6 +151,9 @@ class ReconstructionPipeline:
                    it (``supports_fused``); outputs are identical either way.
     device:        where the backend runs (CUDA unless named; ignored when
                    ``backend`` is an instance, which carries its own).
+    backend_opts:  forwarded to the backend constructor when ``backend`` is
+                   a name (e.g. ``{"capacity_factor": 2.0}`` for
+                   ``"distributed"``).
     """
 
     def __init__(
@@ -161,11 +166,12 @@ class ReconstructionPipeline:
         auto_tune_chunks: bool = False,
         fused: bool = False,
         device=None,
+        backend_opts: dict | None = None,
     ) -> None:
         if isinstance(backend, ExecutionBackend):
             self.backend = backend
         else:
-            self.backend = get_backend(backend, device=device)
+            self.backend = get_backend(backend, device=device, **(backend_opts or {}))
         self.device = self.backend.device
         self.config = config
         self.chunk_threshold = int(chunk_threshold)

@@ -37,7 +37,7 @@ from repro_torch.core.pipeline import ReconstructionPipeline  # noqa: E402
 from repro_torch.core.u32 import to_carrier, to_u32  # noqa: E402
 from repro_torch.kernels import cudalib  # noqa: E402
 
-PORT_BACKENDS = ("torch", "cuda")
+PORT_BACKENDS = ("torch", "cuda", "distributed")
 
 
 def _words(seed, n, w=3, mask=0x00FF0F0F):

@@ -31,6 +31,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.backends import get_backend  # noqa: E402
+from repro_torch.backends.distributed import DistributedBackend  # noqa: E402
 from repro_torch.ckpt import CheckpointIndex, restore_checkpoint, save_checkpoint  # noqa: E402
 from repro_torch.convert import tree_from_numpy  # noqa: E402
 from repro_torch.core.btree import BTreeConfig, _as_stack, stack_trees  # noqa: E402
@@ -119,7 +120,8 @@ print(json.dumps([names, bad]))
                  "repro_torch.replication.replica", "repro_torch.replication.stream",
                  "repro_torch.replication.supervisor", "repro_torch.replication.chaos",
                  "repro_torch.ckpt", "repro_torch.ckpt.checkpoint",
-                 "repro_torch.tools.chaos_soak"):
+                 "repro_torch.tools.chaos_soak", "repro_torch.core.distsort",
+                 "repro_torch.backends.distributed", "repro_torch.tools.rankgroup"):
         assert name in names
     assert bad == []
 
@@ -153,6 +155,38 @@ def test_plan_cache_and_its_programs_name_neither_jax_nor_reference_anywhere():
                  "backends/cuda_backend.py", "backends/torch_backend.py",
                  "kernels/cudalib.py", "tools/chaos_soak.py"):
         assert not mention.search((PACKAGE / name).read_text()), name
+
+
+def test_distributed_modules_name_neither_jax_nor_reference_anywhere():
+    """The distributed backend, the sample sort and the rank launcher name
+    neither JAX's module nor the reference package, not even in a
+    docstring."""
+    mention = re.compile(r"\b(?:import|from)\s+(?:jax|jaxlib|repro)\b(?!_)"
+                         r"|\bjax\.|(?<![\w.])repro\.")
+    for name in ("core/distsort.py", "backends/distributed.py", "tools/rankgroup.py",
+                 "core/__init__.py", "backends/__init__.py"):
+        assert not mention.search((PACKAGE / name).read_text()), name
+
+
+def test_rank_group_starts_its_ranks_with_spawn(monkeypatch):
+    """The ranks start with ``spawn``, never ``fork``: the parent may hold
+    a CUDA context, which a forked child cannot use."""
+    from repro_torch.tools import rankgroup
+
+    asked = []
+
+    class Stop(Exception):
+        pass
+
+    def get_context(method=None):
+        asked.append(method)
+        raise Stop
+
+    monkeypatch.setattr(rankgroup.mp, "get_context", get_context)
+    with pytest.raises(Stop):
+        rankgroup.run_group(print, 2)
+    assert asked == ["spawn"]
+    assert '"fork"' not in (PACKAGE / "tools" / "rankgroup.py").read_text()
 
 
 def test_lookup_program_without_gpu_runs_only_where_the_cpu_is_named(no_gpu):
@@ -194,6 +228,7 @@ def no_gpu(monkeypatch):
     "run_many", "replica", "stream_primary", "stream_primary_untracked", "stream_replica",
     "save_checkpoint", "checkpoint_index", "restore_checkpoint", "run_soak", "chaos_soak_cli",
     "paged_kv_manager", "run_load", "run_pager_load", "lookup_program",
+    "backend_distributed", "distributed_backend", "pipeline_distributed",
 ])
 def test_default_device_entry_points_raise_without_gpu(no_gpu, entry, tmp_path):
     ks = _keyset()
@@ -234,6 +269,10 @@ def test_default_device_entry_points_raise_without_gpu(no_gpu, entry, tmp_path):
         "run_pager_load": lambda: run_pager_load(n_pages=8, n_seqs=1, pages_per_seq=1,
                                                  duration_s=0.0),
         "lookup_program": lambda: PlanCache().graphed(lambda tree, q, n: q),
+        "backend_distributed": lambda: get_backend("distributed"),
+        "distributed_backend": lambda: DistributedBackend(),
+        "pipeline_distributed": lambda: ReconstructionPipeline(
+            backend="distributed", backend_opts={"capacity_factor": 2.0}),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

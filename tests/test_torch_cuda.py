@@ -988,3 +988,95 @@ def test_lookup_graph_replays_count_their_launches(dev):
         pipe.backend.lookup(tree, queries)
     assert cudalib.LAUNCHES["probe"] == 5
     assert plancache.get_cache().replays == 4
+
+
+# ---------------------------------------------------------------------------
+# the distributed backend: one rank, and a gloo group sharing the card
+# ---------------------------------------------------------------------------
+
+
+def _dist_keysets():
+    """A base keyset, its delta, a delete mask, queries and two tenants."""
+    from repro_torch.core.keyformat import KeySet
+
+    def ks(seed, n, rid0=0):
+        words = _keys(seed, n, 3, 0x00FF0F0F)
+        return KeySet(words=words, lengths=np.full(n, 12, np.int32),
+                      rids=np.arange(rid0, rid0 + n, dtype=np.uint32))
+
+    base = ks(1, 6000)
+    rng = np.random.default_rng(2)
+    queries = np.concatenate([base.words[rng.integers(0, 6000, 300)],
+                              base.words[rng.integers(0, 6000, 100)] ^ np.uint32(1)])
+    return base, ks(3, 500, 10_000), rng.random(6000) >= 0.05, queries, [ks(4, 900), ks(5, 900)]
+
+
+def _dist_work(dev, backend, opts=None):
+    """run, run_incremental, the lookups and run_many on one backend: every
+    output as numpy."""
+    from repro_torch.convert import result_to_numpy
+    from repro_torch.core.btree import stack_trees
+
+    base, delta, keep, queries, tenants = _dist_keysets()
+    pipe = ReconstructionPipeline(backend=backend, device=dev, backend_opts=opts)
+    res = pipe.run(base)
+    inc, _ = pipe.run_incremental(res, base, delta, keep_rows=keep)
+    found, rid = pipe.backend.lookup(res.tree, to_carrier(queries, dev))
+    trees = [pipe.run(t).tree for t in tenants]
+    qs = np.stack([queries[:200], queries[200:]])
+    f_m, r_m = pipe.backend.lookup_many(stack_trees(trees), to_carrier(qs, dev))
+    many = pipe.run_many(tenants)
+    return {"run": result_to_numpy(res), "incremental": result_to_numpy(inc),
+            "lookup": [found.cpu().numpy(), to_u32(rid)],
+            "lookup_many": [f_m.cpu().numpy(), to_u32(r_m)],
+            "run_many": [result_to_numpy(r) for r in many]}
+
+
+def _gloo_rank_on_the_card(rank, p):
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cudalib.reset_launches()
+    out = _dist_work(dev, "distributed")
+    return out, dict(cudalib.LAUNCHES)
+
+
+def _assert_nested_equal(got, want, where=""):
+    if isinstance(want, dict):
+        assert got.keys() == want.keys(), where
+        for k in want:
+            _assert_nested_equal(got[k], want[k], f"{where}.{k}")
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want), where
+        for i, (g, w) in enumerate(zip(got, want)):
+            _assert_nested_equal(g, w, f"{where}[{i}]")
+    elif isinstance(want, np.ndarray):
+        assert got.dtype == want.dtype, where
+        np.testing.assert_array_equal(got, want, err_msg=where)
+    else:
+        assert got == want, where
+
+
+def test_distributed_one_rank_on_the_card_equals_cuda(dev):
+    """At p = 1 every stage runs on the local ``"cuda"`` backend: the
+    outputs equal ``"cuda"``'s and its kernels launch."""
+    want = _dist_work(dev, "cuda")
+    cudalib.reset_launches()
+    got = _dist_work(dev, "distributed")
+    _assert_nested_equal(got, want)
+    for name in ("pext", "bitonic_block_sort", "merge_rank", "pk_window", "dbit", "probe",
+                 "probe_many"):
+        assert cudalib.LAUNCHES[name] > 0, name
+
+
+def test_two_rank_gloo_group_on_the_card_equals_cuda(dev):
+    """Two gloo ranks share the card: the sample sort, the routed merge and
+    lookup, and the tenant and batch shards equal ``"cuda"``'s outputs on
+    both ranks, and every kernel launched on the ranks."""
+    from repro_torch.tools.rankgroup import run_group
+
+    want = _dist_work(dev, "cuda")
+    ranks = run_group(_gloo_rank_on_the_card, 2, timeout=120.0, deadline=600.0)
+    for out, _ in ranks:
+        _assert_nested_equal(out, want)
+    for name in ("pext", "bitonic_block_sort", "merge_rank", "pk_window", "dbit", "probe",
+                 "probe_many"):
+        assert all(launches[name] > 0 for _, launches in ranks), name

@@ -43,7 +43,7 @@ from repro_torch.kernels.dbit import adjacent_dbits, adjacent_dbits_plain  # noq
 from repro_torch.kernels.dbit.ref import adjacent_dbits_ref  # noqa: E402
 from repro_torch.kernels.merge.ref import merge_ranks_ref  # noqa: E402
 
-PORT_BACKENDS = ("torch", "cuda")
+PORT_BACKENDS = ("torch", "cuda", "distributed")
 
 
 def _t(a):
@@ -270,9 +270,16 @@ def test_merge_padded_matches_reference(case, counted):
     for keep_padded in (True, False):
         wk, wr = RP.merge_padded(jnp.asarray(ka), jnp.asarray(ra), jnp.asarray(kb),
                                  jnp.asarray(rb), keep_padded=keep_padded, **kw)
+        # the reference's distributed merge re-pads its merged run with
+        # pad_run, so its tail is held against that backend's own
+        dk, dr = r_get_backend("distributed").merge_sorted(
+            jnp.asarray(ka), jnp.asarray(ra), jnp.asarray(kb), jnp.asarray(rb),
+            keep_padded=keep_padded, **kw)
         for backend in PORT_BACKENDS:
             gk, gr = get_backend(backend, device="cpu").merge_sorted(
                 _t(ka), _t(ra), _t(kb), _t(rb), keep_padded=keep_padded, **kw)
+            if backend == "distributed":
+                wk, wr = dk, dr
             np.testing.assert_array_equal(to_u32(gk), np.asarray(wk), err_msg=backend)
             np.testing.assert_array_equal(to_u32(gr), np.asarray(wr), err_msg=backend)
 

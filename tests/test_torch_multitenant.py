@@ -58,7 +58,7 @@ from repro_torch.serve.loadgen import (  # noqa: E402
     run_multitenant_load,
 )
 
-PORT_BACKENDS = ("torch", "cuda")
+PORT_BACKENDS = ("torch", "cuda", "distributed")
 ONES = np.uint32(0xFFFFFFFF)
 
 
