@@ -150,7 +150,7 @@ device or any phase fails:
    error.  Each rebuild's wall and path, the gets per second and the
    percentiles are printed;
 15. kernel report: each kernel's launches on the main paths (phases 3, 5,
-   6, 7, 8, 9, 10, 11, 12, 13, 14 and 16, each counted from 0; phase 16's
+   6, 7, 8, 9, 10, 11, 12, 13, 14, 16 and 17, each counted from 0; phase 16's
    summed over its ranks; a lookup graph's
    replay counts the launches its capture recorded), its device time at the
    main path's
@@ -185,7 +185,29 @@ device or any phase fails:
    with 16-word full keys, retries and peak memory are printed, labelled
    as gloo over host loopback with four ranks on one card.  Then a
    one-rank NCCL group in this process runs the slice through
-   ``"distributed"``, equal to phase 3.
+   ``"distributed"``, equal to phase 3;
+17. lm_serve (run before phase 16): llama3-8b at full width and depth
+   (8.03 B parameters, random bf16 weights from ``seed+51``) served by a
+   ``"cuda"`` ``ServeEngine`` (batch 4, max_seq 1024, pages of 16
+   tokens): four 512-token prompts, 32 greedy tokens, every step's
+   logits finite, one decode step traced with ``torch.profiler`` (its
+   device time, idle share and launches); at nine generated positions,
+   the first and last included, a fresh prefill over the prefix lands
+   within 5e-2 of the logits' scale of the decode step's logits and its
+   clear argmax (top-2 margin above that) is the generated token.  A
+   restart rebuilds the page index (== a ``"torch"`` twin pager byte for
+   byte, every page found through ``lookup_page``); one sequence freed
+   and another grown, a second restart folds the journal incrementally
+   (merge-rank launched), freed pages answer ``None``; a standby engine
+   following the primary's stream over a ``QueueTransport`` restarts at
+   lag 0 and finds every page.  Then qwen3-moe-235b-a22b at full width
+   with its 94 layers cut to 2 (6.2 B parameters): a prefill of 4 x 512
+   tokens (16,384 dispatch entries, a 21-bit one-word key) and 8 decode
+   steps with the ``sort`` and the ``einsum`` dispatch from the same
+   weights: positions byte-identical, dropped fractions and tokens
+   equal, logits within 1e-6 of their scale.  Init, prefill, decode ms
+   (median, p90), tokens/s, peak memory, each restart's wall and path
+   and the phase's wall are printed with the card.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -195,6 +217,7 @@ from __future__ import annotations
 import argparse
 import atexit
 import dataclasses
+import gc
 import hashlib
 import json
 import shutil
@@ -214,6 +237,7 @@ sys.path.insert(0, str(ROOT / "src"))
 import torch  # noqa: E402
 
 from repro_torch.backends import cuda_backend, get_backend  # noqa: E402
+from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.configs.paper_index import ZipfConfig  # noqa: E402
 from repro_torch.core import plancache  # noqa: E402
 from repro_torch.core import btree  # noqa: E402
@@ -245,14 +269,18 @@ from repro_torch.kernels.merge import ops as merge_ops  # noqa: E402
 from repro_torch.kernels.pext import pext, pext_plain  # noqa: E402
 from repro_torch.kernels.pext.ops import segment_plan  # noqa: E402
 from repro_torch.ckpt import restore_checkpoint  # noqa: E402
+from repro_torch.models import lm as lm_mod  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models.lm import LM  # noqa: E402
 from repro_torch.replication import (  # noqa: E402
-    ChangeLog, DirectoryTransport, StreamPrimary, StreamReplica)
+    ChangeLog, DirectoryTransport, QueueTransport, StreamPrimary, StreamReplica)
 from repro_torch.replication import replica as replica_mod  # noqa: E402
 from repro_torch.replication.stream import _state_like  # noqa: E402
 from repro_torch.tools.chaos_soak import run_soak  # noqa: E402
 from repro_torch.serve import MultiTenantEngine, TenantRegistry  # noqa: E402
 from repro_torch.serve.loadgen import (  # noqa: E402
     _probe_keyset_exact, run_load, run_multitenant_load, run_pager_load)
+from repro_torch.serve.engine import ServeEngine  # noqa: E402
 from repro_torch.serve.pager import PagedKVManager  # noqa: E402
 
 #: H100 SXM HBM3 rate (NVIDIA data sheet), for the bytes bound
@@ -303,6 +331,20 @@ DIST_TENANTS = 8
 DIST_TENANT_KEYS = 1 << 17
 DIST_PARTS = 8
 DIST_PART_KEYS = 262_144
+#: phase 17: llama3-8b served at full width and depth
+LM_SERVE = {"arch": "llama3-8b", "batch": 4, "prompt": 512, "new": 32, "max_seq": 1024,
+            "page_tokens": 16}
+#: generated positions held against a fresh prefill (first and last included)
+TF_POSITIONS = (0, 1, 5, 9, 13, 17, 21, 25, 31)
+#: the decode step traced with torch.profiler (left out of the step times)
+TRACE_STEP = 16
+#: decode against prefill logits in bf16, as a fraction of the logits' scale
+#: (max |logit|): the two paths round in different orders
+LOGIT_TOL = 5e-2
+#: phase 17's MoE part: qwen3-moe at full width, depth cut to fit one card
+MOE_SERVE = {"arch": "qwen3-moe-235b-a22b", "layers": 2, "decode": 8}
+#: sort against einsum dispatch: the same positions give the same arithmetic
+MOE_LOGIT_TOL = 1e-6
 
 #: kernel -> (CUDA source, the TPU kernel it replaces)
 KERNELS = {
@@ -335,6 +377,7 @@ PATH_KERNELS = {
                   "probe_many"),
     "distributed": ("pext", "bitonic_block_sort", "merge_rank", "pk_window", "dbit", "probe",
                     "probe_many"),
+    "lm_serve": ("pext", "bitonic_block_sort", "merge_rank", "pk_window", "dbit", "probe"),
 }
 
 
@@ -2188,6 +2231,327 @@ def pager_phase(args, dev, launches: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 17: the LM serving path, llama3-8b at full width and depth, then
+# qwen3-moe at full width with its depth cut
+# ---------------------------------------------------------------------------
+
+def lm_param_count(params: dict) -> int:
+    def count(tree):
+        if isinstance(tree, dict):
+            return sum(count(v) for v in tree.values())
+        return tree.numel()
+    return count(params)
+
+
+@contextmanager
+def recorded_logits(engine, steps: list, trace_at: int | None = None, traced: dict | None = None):
+    """Record the engine's logits, each admit and step timed to the
+    device's end (a clone of every call's (B, V) logits and its wall).
+    Call ``trace_at`` (0 is the admit) runs under ``torch.profiler``; its
+    profile goes to ``traced["prof"]`` and its wall to ``traced["wall_s"]``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    admit, step = engine.admit, engine.step
+
+    def timed(fn):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            if len(steps) == trace_at:
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    logits = fn(*a, **k)
+                    torch.cuda.synchronize()
+                    traced.update(prof=prof, wall_s=time.perf_counter() - t0)
+            else:
+                t0 = time.perf_counter()
+                logits = fn(*a, **k)
+                torch.cuda.synchronize()
+            steps.append((logits.clone(), time.perf_counter() - t0))
+            return logits
+        return call
+
+    engine.admit, engine.step = timed(admit), timed(step)
+    try:
+        yield steps
+    finally:
+        del engine.admit, engine.step
+
+
+def step_profile(traced: dict) -> dict:
+    """A traced decode step: its wall, the device's busy time and idle
+    share, the kernels it launched and the host calls that launched them,
+    and the kernels that took the most device time."""
+    prof = traced["prof"]
+    device = device_ms_by_kernel(prof)
+    busy_ms = sum(ms for _, ms, _ in device)
+    launch_calls = sum(e.count for e in prof.key_averages()
+                       if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+                                    "cuLaunchKernelEx"))
+    return {"wall_ms": traced["wall_s"] * 1e3, "device_busy_ms": busy_ms,
+            "idle_share": 1 - busy_ms / 1e3 / traced["wall_s"],
+            "device_kernels": sum(count for _, _, count in device),
+            "host_launch_calls": launch_calls,
+            "top_device_ms": [[name[:60], ms, count] for name, ms, count in device[:6]]}
+
+
+@contextmanager
+def dispatch_spy():
+    """Record the MoE dispatch positions of every call, in either mode,
+    the compressed key's width, and each layer's dropped fraction."""
+    seen = {"pos": [], "key_bits": [], "dropped": []}
+    sort_fn, cumsum_fn, ffn = (moe_mod.dispatch_indices_sort, moe_mod.dispatch_indices_cumsum,
+                               lm_mod.moe_ffn)
+
+    def by_sort(expert_id, n_experts):
+        seen["key_bits"].append(moe_mod._bits_for(n_experts)
+                                + moe_mod._bits_for(int(expert_id.shape[0])))
+        pos, perm = sort_fn(expert_id, n_experts)
+        seen["pos"].append(pos.clone())
+        return pos, perm
+
+    def by_cumsum(onehot):
+        pos = cumsum_fn(onehot)
+        seen["pos"].append(pos.clone())
+        return pos
+
+    def moe_ffn(*a, **k):
+        out, aux = ffn(*a, **k)
+        seen["dropped"].append(float(aux["dropped_frac"]))
+        return out, aux
+
+    moe_mod.dispatch_indices_sort, moe_mod.dispatch_indices_cumsum = by_sort, by_cumsum
+    lm_mod.moe_ffn = moe_ffn
+    try:
+        yield seen
+    finally:
+        moe_mod.dispatch_indices_sort, moe_mod.dispatch_indices_cumsum = sort_fn, cumsum_fn
+        lm_mod.moe_ffn = ffn
+
+
+def check_pages(answer, table: dict, gone, what: str) -> None:
+    """``answer(seq, page)`` gives every mapped page its physical page and
+    ``None`` for every pair of ``gone``."""
+    wrong = [k for k, phys in table.items() if answer(*k) != phys]
+    check(not wrong, f"{what}: {len(wrong)} mapped pages answered wrong, first {wrong[:3]}")
+    answered = [k for k in gone if answer(*k) is not None]
+    check(not answered, f"{what}: freed pages answered: {answered[:3]}")
+
+
+def logit_stats(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    """(max |got - want|, the scale: max |want|)."""
+    return float((got - want).abs().max()), float(want.abs().max())
+
+
+def step_ms(walls: list) -> dict:
+    ms = np.asarray(walls) * 1e3
+    return {"median": float(np.median(ms)), "p90": float(np.percentile(ms, 90))}
+
+
+def lm_serve_phase(args, dev, launches: dict) -> None:
+    """Phase 17: the LM serving path.  Part A: llama3-8b at full width and
+    depth (8.03 B parameters, random from the seed, bf16) served by a
+    ``"cuda"`` ``ServeEngine`` (batch 4, max_seq 1024, pages of 16
+    tokens): four prompts of 512 tokens, 32 greedy tokens, every step's
+    logits finite, nine positions held against a fresh prefill over their
+    prefix (teacher forcing); a restart rebuilds the page index (== a
+    ``"torch"`` twin pager, every page found through ``lookup_page``), one
+    sequence is freed and another grown, a second restart folds the
+    journal incrementally (merge-rank), and a standby that follows the
+    primary over a ``QueueTransport`` finds every page at lag 0.  Part B:
+    qwen3-moe at full width, two layers, prefill 4 x 512 and 8 decode
+    steps with the sort and the einsum dispatch from one set of weights:
+    positions byte-identical, dropped fractions equal, logits within the
+    tolerance.  The primary's generate, restarts and page gets and the
+    standby's restart and gets are the path, counted from 0."""
+    t_phase = time.perf_counter()
+    card = card_line()
+    acc = launches.setdefault("lm_serve", {})
+    a = LM_SERVE
+    rng = np.random.default_rng(args.seed + 51)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 51)
+
+    # -- part A: llama3-8b ---------------------------------------------------
+    cfg = ARCHS[a["arch"]]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = LM(cfg, device=dev)
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = lm_param_count(params)
+    # the config's count leaves out the norm vectors (two a layer, one final)
+    check(n_params == cfg.total_params() + (2 * cfg.n_layers + 1) * cfg.d_model,
+          f"{n_params} parameters for {cfg.name}, config says {cfg.total_params()}")
+    opts = dict(max_seq=a["max_seq"], batch_size=a["batch"], page_tokens=a["page_tokens"],
+                device=dev)
+    transport = QueueTransport()
+    eng = ServeEngine(model, params, **opts)
+    eng.pager.attach_stream(StreamPrimary(transport, n_words=2, device=dev))
+    standby = ServeEngine(model, params, **opts)
+    standby.follow(StreamReplica(transport, backend="cuda", device=dev))
+    twin = PagedKVManager(n_pages=eng.pager.n_pages, page_tokens=a["page_tokens"],
+                          backend="torch", device=dev)
+    prompts = rng.integers(0, cfg.vocab_size, (a["batch"], a["prompt"]))
+    steps: list = []
+    traced: dict = {}
+    with counted(acc), recorded_logits(eng, steps, TRACE_STEP, traced):
+        t0 = time.perf_counter()
+        out = eng.generate(prompts, a["new"])
+        gen_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    check(out.shape == (a["batch"], a["new"]), f"generate returned {out.shape}")
+    check(all(bool(torch.isfinite(lg).all()) for lg, _ in steps),
+          "a step's logits are not finite")
+    kv_gib = sum(t.numel() * t.element_size() for sub in eng._cache.values()
+                 for t in sub.values()) / 2**30
+
+    # teacher forcing: each recorded position against a fresh prefill over
+    # its prefix (steps[j] gave out[:, j]; its prefix holds out[:, :j])
+    full = np.concatenate([prompts, out], axis=1)
+    tf = []
+    for j in TF_POSITIONS:
+        n_tok = a["prompt"] + j
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, want = model.prefill(params, {"tokens": torch.as_tensor(full[:, :n_tok], device=dev)},
+                                model.init_cache(a["batch"], n_tok))
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        got = steps[j][0]
+        err, scale = logit_stats(got, want)
+        check(err <= LOGIT_TOL * scale,
+              f"position {j}: decode logits {err} from the prefill's (scale {scale})")
+        top2 = torch.topk(want, 2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > LOGIT_TOL * scale
+        agree = want.argmax(dim=-1).cpu().numpy() == out[:, j]
+        check(bool(np.all(agree[clear.cpu().numpy()])),
+              f"position {j}: a generated token is not the prefill's clear argmax")
+        tf.append({"position": j, "max_abs_err": err, "scale": scale,
+                   "clear": int(clear.sum()), "agree": int(agree.sum()), "prefill_s": prefill_s})
+        del want
+    twin_ops = [(b, a["prompt"]) for b in range(a["batch"])]
+    twin_ops += [(b, pos + 1) for pos in range(a["prompt"], a["prompt"] + a["new"])
+                 for b in range(a["batch"])]
+    for seq, n_tok in twin_ops:
+        twin.pages_for(seq, n_tok)
+
+    # first restart: the page index rebuilt from the table
+    with counted(acc):
+        st1 = eng.restart()
+        check_pages(eng.lookup_page, eng.pager._table, [(a["batch"], 0)], "first restart")
+    twin.rebuild_index()
+    pagers_equal(eng.pager, twin, "first restart, cuda vs torch")
+    check(not st1["incremental"], "the first restart did not build from the table")
+    check(result_digests(eng.pager._index) == result_digests(twin._index),
+          "first restart: digests differ")
+
+    # second restart: free one sequence, grow another, fold the journal
+    victim, grown = a["batch"] - 1, 1
+    gone = [k for k in eng.pager._table if k[0] == victim]
+    for p in (eng.pager, twin):
+        p.free_seq(victim)
+        p.pages_for(grown, a["max_seq"])
+    second = {}
+    with counted(second):
+        st2 = eng.restart()
+        check_pages(eng.lookup_page, eng.pager._table, gone, "second restart")
+    add_launches(acc, second)
+    twin.rebuild_index()
+    pagers_equal(eng.pager, twin, "second restart, cuda vs torch")
+    check(st2["incremental"] is True, f"the second restart was not incremental: {st2}")
+    check(second["merge_rank"] > 0, "the incremental restart launched no merge-rank kernel")
+
+    # the standby follows the primary's stream
+    with counted(acc):
+        t0 = time.perf_counter()
+        sst = standby.restart()
+        standby_s = time.perf_counter() - t0
+        check_pages(standby.lookup_page, eng.pager._table, gone, "standby")
+    check(sst["followed_stream"] and sst["lag_frames"] == 0,
+          f"the standby is behind: {sst}")
+    check(sst["applied_lsn"] == eng.pager._log.start_lsn - 1,
+          "the standby is not current through the primary's journal")
+    check_launches("lm_serve", acc)
+
+    decode_walls = [w for i, (_, w) in enumerate(steps) if i not in (0, TRACE_STEP)]
+    line_a = {
+        "arch": cfg.name, "params": n_params, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "vocab": cfg.vocab_size, "dtype": "bfloat16", "batch": a["batch"],
+        "prompt": a["prompt"], "new_tokens": a["new"], "max_seq": a["max_seq"],
+        "kv_cache_gib": kv_gib, "init_s": init_s, "prefill_s": steps[0][1],
+        "warm_prefill_s": tf[0]["prefill_s"], "decode_ms": step_ms(decode_walls),
+        "traced_decode_step": {"index": TRACE_STEP, **step_profile(traced)}, "generate_s": gen_s,
+        "tokens_per_s": out.size / gen_s, "decode_tokens_per_s": a["batch"] / np.median(decode_walls),
+        "peak_gib": peak_gib, "logit_tol": LOGIT_TOL, "teacher_forcing": tf,
+        "table_pages": len(eng.pager._table),
+        "restart_1": {"rebuild_s": st1["rebuild_s"], "path": "first build",
+                      "stage_s": st1["stage_s"]},
+        "restart_2": {"rebuild_s": st2["rebuild_s"], "path": "incremental",
+                      "replayed": st2["log_entries_replayed"], "stage_s": st2["stage_s"]},
+        "standby": {"restart_s": standby_s, "applied_lsn": sst["applied_lsn"],
+                    "lag_frames": sst["lag_frames"], "incremental": sst["incremental"]},
+    }
+    print(f"[lm_serve] {json.dumps(line_a)}; {card}", flush=True)
+    del eng, standby, twin, params, model, steps, full
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- part B: qwen3-moe at full width, two layers ---------------------------
+    cfg_b = dataclasses.replace(ARCHS[MOE_SERVE["arch"]], n_layers=MOE_SERVE["layers"])
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    models = {mode: LM(dataclasses.replace(cfg_b, dispatch_mode=mode), device=dev)
+              for mode in ("sort", "einsum")}
+    params = models["sort"].init(gen)
+    torch.cuda.synchronize()
+    init_b = time.perf_counter() - t0
+    prompts = rng.integers(0, cfg_b.vocab_size, (a["batch"], a["prompt"]))
+    runs = {}
+    for mode, model in models.items():
+        eng = ServeEngine(model, params, **opts)
+        steps = []
+        with dispatch_spy() as seen, recorded_logits(eng, steps):
+            toks = eng.generate(prompts, MOE_SERVE["decode"])
+        runs[mode] = {"tokens": toks, "steps": steps, **seen}
+        del eng
+    srt, ein = runs["sort"], runs["einsum"]
+    check(len(srt["pos"]) == len(ein["pos"]) == MOE_SERVE["layers"] * (1 + MOE_SERVE["decode"]),
+          f"{len(srt['pos'])} and {len(ein['pos'])} dispatches")
+    check(all(same(p, q) for p, q in zip(srt["pos"], ein["pos"])),
+          "sort and einsum dispatch positions differ")
+    check(srt["dropped"] == ein["dropped"], "the dropped fractions differ")
+    check(max(srt["key_bits"]) <= 32, f"a dispatch key took {max(srt['key_bits'])} bits")
+    errs = [logit_stats(s[0], e[0]) for s, e in zip(srt["steps"], ein["steps"])]
+    check(all(err <= MOE_LOGIT_TOL * scale for err, scale in errs),
+          f"sort and einsum logits differ: {errs}")
+    check(all(bool(torch.isfinite(lg).all()) for lg, _ in srt["steps"]),
+          "a qwen3-moe step's logits are not finite")
+    check(np.array_equal(srt["tokens"], ein["tokens"]), "sort and einsum tokens differ")
+    line_b = {
+        "arch": cfg_b.name, "layers": cfg_b.n_layers, "full_layers": ARCHS[cfg_b.name].n_layers,
+        "params": lm_param_count(params), "experts": cfg_b.n_experts, "top_k": cfg_b.top_k,
+        "init_s": init_b, "prefill_entries": int(srt["pos"][0].numel()),
+        "prefill_key_bits": srt["key_bits"][0], "dropped_frac_prefill": srt["dropped"][:2],
+        "max_logit_err": max(e for e, _ in errs), "logit_tol": MOE_LOGIT_TOL,
+        **{f"{mode}_prefill_s": r["steps"][0][1] for mode, r in runs.items()},
+        **{f"{mode}_decode_ms": step_ms([w for _, w in r["steps"][1:]])
+           for mode, r in runs.items()},
+        "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    print(f"[lm_serve] moe {json.dumps(line_b)}; {card}", flush=True)
+    print(f"[lm_serve] launches {json.dumps(acc)}; llama3-8b decode == prefill within "
+          f"{LOGIT_TOL} of the logits' scale at {len(TF_POSITIONS)} positions, both restarts "
+          "== torch, every page found on the primary and the standby, freed pages gone; "
+          "qwen3-moe sort == einsum dispatch byte for byte; "
+          f"the phase took {time.perf_counter() - t_phase:.1f} s; {card}", flush=True)
+    del params, models, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # phase 16: the distributed backend, four gloo ranks sharing the card
 # ---------------------------------------------------------------------------
 
@@ -2737,6 +3101,9 @@ def main(argv=None) -> int:
 
     # -- 14. pager: the serving page table, its standby and its load run --------
     pager_phase(args, dev, launches)
+
+    # -- 17. lm_serve: llama3-8b served and restarted, qwen3-moe's two dispatches -
+    lm_serve_phase(args, dev, launches)
 
     # -- 16. distributed: four gloo ranks on the card, one NCCL rank here -------
     # (before the report, which counts its launches)

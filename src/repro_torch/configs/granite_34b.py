@@ -1,0 +1,18 @@
+"""granite-34b — 88L d_model=6144 48H (MQA kv=1) d_ff=24576 vocab=49152.
+llama-arch code model.  [arXiv:2405.04324; hf]"""
+
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="granite-34b",
+    family="dense",
+    n_layers=88,
+    d_model=6144,
+    n_heads=48,
+    n_kv_heads=1,
+    d_ff=24576,
+    vocab_size=49152,
+    pattern=((("attn", "dense")),),
+    rope_theta=10000.0,
+    source="arXiv:2405.04324",
+)

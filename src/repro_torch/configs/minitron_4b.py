@@ -1,0 +1,20 @@
+"""minitron-4b — 32L d_model=3072 24H (GQA kv=8) d_ff=9216 vocab=256000.
+Pruned Nemotron; the 256k vocab stresses embedding sharding.
+[arXiv:2407.14679; hf]"""
+
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="minitron-4b",
+    family="dense",
+    n_layers=32,
+    d_model=3072,
+    n_heads=24,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=9216,
+    vocab_size=256000,
+    pattern=((("attn", "dense")),),
+    rope_theta=10000.0,
+    source="arXiv:2407.14679",
+)

@@ -1,5 +1,6 @@
 """State to and from numpy: the bridge between the port and any other
-holder of the same index state (the reference package, files, tests).
+holder of the same index state (the reference package, files, tests),
+and of the same LM parameters and caches.
 
 Everything crosses as numpy in the reference's dtypes — ``uint32`` for key
 words, rids and partial keys, ``int32`` for child/hi/dpos/klen, ``bool``
@@ -26,6 +27,9 @@ __all__ = [
     "stacked_tree_from_numpy",
     "stacked_tree_to_numpy",
     "result_to_numpy",
+    "lm_params_from_numpy",
+    "lm_cache_from_numpy",
+    "lm_cache_to_numpy",
 ]
 
 #: tree fields held as u32 (int64 carriers in the port); the others are i32
@@ -148,3 +152,46 @@ def result_to_numpy(res) -> dict:
             "n_words": int(res.meta.n_words),
         },
     }
+
+
+# ---------------------------------------------------------------------------
+# LM parameters and caches
+# ---------------------------------------------------------------------------
+
+
+def _float_tensor(a) -> torch.Tensor:
+    """A float array (f32, or bf16 as the reference holds it) as a tensor
+    of the same dtype; bf16 crosses through f32, which holds it exactly."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    if a.dtype.kind in "iub":
+        return torch.from_numpy(np.array(a))
+    return torch.from_numpy(np.array(a, np.float32))
+
+
+def _map_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def lm_params_from_numpy(tree: dict, model) -> dict:
+    """The reference's LM parameter tree as numpy (``embed``, ``blocks``
+    stacked over superblocks, ``final_norm``, ``lm_head``) -> the port's
+    parameters for ``model`` (an ``repro_torch.models.lm.LM``), cast once
+    as ``LM.prepare`` casts."""
+    return model.prepare(_map_tree(_float_tensor, tree))
+
+
+def lm_cache_from_numpy(tree: dict, device=None) -> dict:
+    """An LM cache tree as numpy (stacked over superblocks) -> tensors on
+    ``device`` in the same dtypes (bf16 leaves stay bf16)."""
+    dev = resolve_device(device)
+    return _map_tree(lambda a: _float_tensor(a).to(dev), tree)
+
+
+def lm_cache_to_numpy(cache: dict) -> dict:
+    """An LM cache as numpy f32 arrays (bf16 leaves up-cast exactly), copied:
+    the port's steps write their cache in place."""
+    return _map_tree(lambda t: np.array(t.detach().to(torch.float32).cpu().numpy()), cache)

@@ -1,0 +1,207 @@
+"""Shared model layers in plain PyTorch.
+
+Attention keeps the JAX package's blockwise online softmax as it is: the
+same ``q_chunk``/``kv_chunk`` segments, the same ``-inf`` guards for fully
+masked rows, the causal offset for queries at the end of a longer context
+and the zero pad of a ragged decode tail.  The tests hold these functions
+tightly against the reference, so nothing here calls
+``F.scaled_dot_product_attention``, whose blocking and reduction order
+are its own.
+
+Where the reference asks for f32 products of bf16 inputs, the port
+up-casts the inputs and multiplies in f32: the reference does the same on
+the CPU, and a bf16 product is exact in f32, so only the summation order
+differs on the card.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+__all__ = [
+    "rms_norm",
+    "silu",
+    "rope_freqs",
+    "apply_rope",
+    "flash_attention",
+    "decode_attention",
+]
+
+
+# ---------------------------------------------------------------------------
+# norms / activations / rope
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    scale = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    return ((xf * scale) * w.float()).to(x.dtype)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (B, H, T, dh); positions: (T,) or (B, T)."""
+    dh = x.shape[-1]
+    inv = rope_freqs(dh, theta, x.device)
+    ang = positions[..., None].float() * inv  # (..., T, dh/2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    if positions.dim() == 1:
+        cos, sin = cos[None, None], sin[None, None]
+    else:  # (B, T, dh/2) -> (B, 1, T, dh/2)
+        cos, sin = cos[:, None], sin[:, None]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+
+def _einsum_f32(sub: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The product of two (bf16) operands in f32, from up-cast inputs."""
+    return torch.einsum(sub, a.float(), b.float())
+
+
+def _block_attn_update(q_i, k_j, v_j, m, l, acc, mask=None, scale=1.0):
+    """One online-softmax block update.
+
+    q_i: (B, G, r, qc, dh); k_j/v_j: (B, G, kc, dh);
+    m, l: (B, G, r, qc); acc: (B, G, r, qc, dh) f32.
+    """
+    s = _einsum_f32("bgrqd,bgkd->bgrqk", q_i, k_j) * scale
+    if mask is not None:
+        s = s.masked_fill(~mask, -math.inf)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    # guard fully-masked rows (m_new == -inf)
+    safe_m = torch.where(torch.isfinite(m_new), m_new, 0.0)
+    p = torch.exp(s - safe_m[..., None])
+    if mask is not None:
+        p = p.masked_fill(~mask, 0.0)
+    corr = torch.exp(torch.where(torch.isfinite(m), m - safe_m, -math.inf))
+    corr = torch.where(torch.isfinite(corr), corr, 0.0)
+    l_new = l * corr + p.sum(dim=-1)
+    acc_new = acc * corr[..., None] + _einsum_f32(
+        "bgrqk,bgkd->bgrqd", p.to(v_j.dtype), v_j)
+    return m_new, l_new, acc_new
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    q_chunk: int = 512,
+    kv_chunk: int = 1024,
+) -> torch.Tensor:
+    """Blockwise GQA attention.  q: (B, Hq, Tq, dh); k, v: (B, G, Tk, dh).
+
+    One segment per q chunk, each carrying a chunk-local (B, G, r, qc, dh)
+    online-softmax state through exactly the kv chunks it can see (all of
+    them without ``causal``).  A length that the chunk does not divide
+    (small tests, a prefix of odd length) is one block.
+    """
+    B, Hq, Tq, dh = q.shape
+    G, Tk = k.shape[1], k.shape[2]
+    r = Hq // G
+    q_chunk = min(q_chunk, Tq)
+    kv_chunk = min(kv_chunk, Tk)
+    if Tq % q_chunk:  # ragged: single q block
+        q_chunk = Tq
+    if Tk % kv_chunk:
+        kv_chunk = Tk
+    nq, nk = Tq // q_chunk, Tk // kv_chunk
+    qg = q.reshape(B, G, r, Tq, dh)
+    scale = 1.0 / math.sqrt(dh)
+
+    # causal offset: queries are the *last* Tq positions of the Tk context
+    off = Tk - Tq
+    k_pos = torch.arange(kv_chunk, device=q.device)
+
+    outs = []
+    for i in range(nq):
+        q_i = qg[:, :, :, i * q_chunk:(i + 1) * q_chunk]
+        if causal:
+            last_q = off + (i + 1) * q_chunk - 1
+            n_vis = min(last_q // kv_chunk + 1, nk)
+        else:
+            n_vis = nk
+        m = torch.full((B, G, r, q_chunk), -math.inf, dtype=torch.float32, device=q.device)
+        l = torch.zeros((B, G, r, q_chunk), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((B, G, r, q_chunk, dh), dtype=torch.float32, device=q.device)
+        gq = off + i * q_chunk + torch.arange(q_chunk, device=q.device)
+        for j in range(n_vis):
+            k_j = k[:, :, j * kv_chunk:(j + 1) * kv_chunk]
+            v_j = v[:, :, j * kv_chunk:(j + 1) * kv_chunk]
+            mask = None
+            if causal:
+                gk = j * kv_chunk + k_pos
+                mask = (gq[:, None] >= gk[None, :])[None, None, None]
+            m, l, acc = _block_attn_update(q_i, k_j, v_j, m, l, acc, mask, scale)
+        outs.append(acc / l[..., None].clamp_min(1e-30))
+
+    out = torch.cat(outs, dim=3)
+    return out.reshape(B, Hq, Tq, dh).to(q.dtype)
+
+
+def decode_attention(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    length,
+    kv_chunk: int = 2048,
+) -> torch.Tensor:
+    """Single-token attention against a KV cache, flash-decoding style.
+
+    q: (B, Hq, 1, dh); caches: (B, G, S, dh); length: an int, a () or a
+    (B,) tensor of valid kv counts.  The sequence axis is split into
+    segments whose online-softmax partials are merged by a max/logsumexp
+    combine.
+    """
+    B, Hq, _, dh = q.shape
+    G, S = k_cache.shape[1], k_cache.shape[2]
+    r = Hq // G
+    kv_chunk = min(kv_chunk, S)
+    if S % kv_chunk:  # ragged tail (small tests): pad; masked out below
+        pad = kv_chunk - S % kv_chunk
+        zeros = torch.zeros((B, G, pad, dh), dtype=k_cache.dtype, device=k_cache.device)
+        k_cache = torch.cat([k_cache, zeros], dim=2)
+        v_cache = torch.cat([v_cache, zeros], dim=2)
+        S += pad
+    ns, sc = S // kv_chunk, kv_chunk
+    qg = q.reshape(B, G, r, dh)
+    k5 = k_cache.reshape(B, G, ns, sc, dh)
+    v5 = v_cache.reshape(B, G, ns, sc, dh)
+    scale = 1.0 / math.sqrt(dh)
+    length = torch.as_tensor(length, device=q.device)
+    lb = length.expand(B) if length.dim() == 0 else length  # (B,)
+
+    s = _einsum_f32("bgrd,bgscd->bgrsc", qg, k5) * scale
+    pos = (torch.arange(ns, device=q.device) * sc)[:, None] + torch.arange(sc, device=q.device)
+    mask = (pos[None] < lb[:, None, None])[:, None, None]  # (B, 1, 1, ns, sc)
+    s = s.masked_fill(~mask, -math.inf)
+    m_s = s.amax(dim=-1)  # (B, G, r, ns)
+    safe = torch.where(torch.isfinite(m_s), m_s, 0.0)
+    p = torch.exp(s - safe[..., None]).masked_fill(~mask, 0.0)
+    l_s = p.sum(dim=-1)  # (B, G, r, ns)
+    acc_s = _einsum_f32("bgrsc,bgscd->bgrsd", p.to(v5.dtype), v5)
+    # merge the segments
+    m = m_s.amax(dim=-1, keepdim=True)  # (B, G, r, 1)
+    w = torch.where(torch.isfinite(m_s),
+                    torch.exp(m_s - torch.where(torch.isfinite(m), m, 0.0)), 0.0)
+    l = (w * l_s).sum(dim=-1)  # (B, G, r)
+    out = (w[..., None] * acc_s).sum(dim=3) / l[..., None].clamp_min(1e-30)
+    return out.reshape(B, Hq, 1, dh).to(q.dtype)

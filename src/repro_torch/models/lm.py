@@ -1,0 +1,373 @@
+"""The LM model zoo on PyTorch: one model class covering all ten architectures
+for serving (prefill and decode).
+
+A model is a stack of *superblocks*, the config's ``pattern`` of (mixer,
+ffn) sublayers.  Every parameter is stacked over superblocks, as the JAX
+package stacks it for its scan, and the forward pass is a Python loop
+over the superblock index that reads views of the stacked tensors.  Two
+modes share the forward code:
+
+  prefill  — causal forward over (B, S) that also fills the caches;
+  decode   — single-token step against the caches (B, 1).
+
+Parameters are cast once, when they are made or loaded (``init``,
+``prepare``): every matrix (two or more dims per superblock) and the
+embedding table to ``compute_dtype``, every vector and scalar kept in
+f32, and the output head held in f32 with values rounded through
+``compute_dtype``, so logits are f32 products of ``compute_dtype``
+inputs, as the reference computes them.  Caches are stacked over
+superblocks too (``init_cache``); ``prefill`` and ``decode_step`` write
+them in place and return the same dict, so a caller that still needs the
+old cache passes a copy.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.u32 import resolve_device
+
+from .layers import apply_rope, decode_attention, flash_attention, rms_norm, silu
+from .moe import moe_ffn
+from .ssm import mamba_mix
+from .xlstm import mlstm_mix, slstm_mix
+
+__all__ = ["LM"]
+
+_F32 = torch.float32
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+class _Init:
+    """Makes each stacked parameter on the device in its final dtype, so a
+    full-width model never holds an f32 copy of a matrix in whole."""
+
+    def __init__(self, nsb: int, gen: torch.Generator, device, dtype):
+        self.nsb, self.gen, self.device, self.dtype = nsb, gen, device, dtype
+
+    def lin(self, fan_in: int, shape: tuple) -> torch.Tensor:
+        t = torch.randn((self.nsb, *shape), generator=self.gen, device=self.device,
+                        dtype=self.dtype)
+        return t.mul_(fan_in ** -0.5)
+
+    def full(self, shape: tuple, value: float) -> torch.Tensor:
+        return torch.full((self.nsb, *shape), value, dtype=_F32, device=self.device)
+
+
+def _init_sublayer(cfg: ArchConfig, mixer: str, ffn: str, mk: _Init) -> dict:
+    d, hd, H, G = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    p: dict = {"ln": mk.full((d,), 1.0)}
+    if mixer in ("attn", "xattn"):
+        p.update(
+            wq=mk.lin(d, (d, H * hd)),
+            wk=mk.lin(d, (d, G * hd)),
+            wv=mk.lin(d, (d, G * hd)),
+            wo=mk.lin(H * hd, (H * hd, d)),
+        )
+        if cfg.qk_norm:
+            p.update(q_norm=mk.full((hd,), 1.0), k_norm=mk.full((hd,), 1.0))
+        if mixer == "xattn":
+            p.update(gate=mk.full((), 0.0), ln_kv=mk.full((d,), 1.0))
+    elif mixer == "mamba":
+        di, N, r_ = cfg.ssm_expand * d, cfg.ssm_state, cfg.dt_rank
+        u = torch.rand((mk.nsb, di), generator=mk.gen, device=mk.device, dtype=_F32)
+        a_log = torch.log(torch.arange(1, N + 1, dtype=_F32, device=mk.device))
+        p.update(
+            in_proj=mk.lin(d, (d, 2 * di)),
+            conv_w=mk.lin(cfg.ssm_conv, (di, cfg.ssm_conv)),
+            conv_b=mk.full((di,), 0.0),
+            x_proj=mk.lin(di, (di, r_ + 2 * N)),
+            dt_proj=mk.lin(r_, (r_, di)),
+            dt_bias=torch.log(torch.expm1(1e-3 + u * (0.1 - 1e-3))),
+            A_log=a_log.expand(mk.nsb, di, N).to(mk.dtype).contiguous(),
+            D=mk.full((di,), 1.0),
+            out_proj=mk.lin(di, (di, d)),
+        )
+    elif mixer == "mlstm":
+        di = cfg.xlstm_expand * d
+        p.update(
+            w_up=mk.lin(d, (d, 2 * di)),
+            wq_l=mk.lin(di, (di, di)),
+            wk_l=mk.lin(di, (di, di)),
+            wv_l=mk.lin(di, (di, di)),
+            wi=mk.lin(di, (di, cfg.xlstm_heads)),
+            wf=mk.lin(di, (di, cfg.xlstm_heads)),
+            w_down=mk.lin(di, (di, d)),
+        )
+    elif mixer == "slstm":
+        Hx = cfg.xlstm_heads
+        dh = d // Hx
+        p.update({f"sw_{g}": mk.lin(d, (d, d)) for g in "ifzo"})
+        p.update({f"r_{g}": mk.lin(dh, (Hx, dh, dh)) for g in "ifzo"})
+        p.update(b_i=mk.full((d,), 0.0), b_f=mk.full((d,), 1.0))  # forget bias > 0
+    else:
+        raise ValueError(mixer)
+
+    if ffn == "dense":
+        p.update(
+            ln2=mk.full((d,), 1.0),
+            w1=mk.lin(d, (d, cfg.d_ff)),
+            w3=mk.lin(d, (d, cfg.d_ff)),
+            w2=mk.lin(cfg.d_ff, (cfg.d_ff, d)),
+        )
+    elif ffn == "moe":
+        E, f = cfg.n_experts, cfg.moe_d_ff
+        p.update(
+            ln2=mk.full((d,), 1.0),
+            router=mk.lin(d, (d, E)),
+            moe_w1=mk.lin(d, (E, d, f)),
+            moe_w3=mk.lin(d, (E, d, f)),
+            moe_w2=mk.lin(f, (E, f, d)),
+        )
+        if cfg.shared_expert:
+            p.update(
+                w1=mk.lin(d, (d, cfg.d_ff)),
+                w3=mk.lin(d, (d, cfg.d_ff)),
+                w2=mk.lin(cfg.d_ff, (cfg.d_ff, d)),
+            )
+    elif ffn != "none":
+        raise ValueError(ffn)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# the model
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class LM:
+    cfg: ArchConfig
+    compute_dtype: torch.dtype = torch.bfloat16
+    #: where parameters, caches and the forward pass live: CUDA unless the
+    #: caller names another device
+    device: object = None
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+
+    # ----------------------------------------------------------------- init
+    def init(self, generator: torch.Generator) -> dict:
+        """Random parameters from ``generator`` (a generator on
+        ``self.device``), made in their final dtypes: N(0, 1/fan_in)
+        matrices, ones for the norms, Mamba's S4D-real ``A_log``."""
+        cfg = self.cfg
+        one = _Init(1, generator, self.device, self.compute_dtype)
+        mk = _Init(cfg.n_superblocks, generator, self.device, self.compute_dtype)
+        params: dict = {"embed": one.lin(cfg.d_model, (cfg.vocab_size, cfg.d_model))[0]}
+        params["blocks"] = {
+            str(i): _init_sublayer(cfg, mixer, ffn, mk)
+            for i, (mixer, ffn) in enumerate(cfg.pattern)
+        }
+        params["final_norm"] = torch.ones(cfg.d_model, dtype=_F32, device=self.device)
+        if not cfg.tie_embeddings:  # f32, with values in the compute dtype
+            params["lm_head"] = one.lin(cfg.d_model, (cfg.d_model, cfg.vocab_size))[0].float()
+        return params
+
+    def prepare(self, raw: dict) -> dict:
+        """The one cast at load: a parameter tree in the reference's layout
+        (tensors of any dtype, matrices stacked over superblocks) -> the
+        port's parameters on ``self.device``."""
+        cd, dev = self.compute_dtype, self.device
+
+        def block_leaf(t: torch.Tensor) -> torch.Tensor:
+            t = t.to(dev)
+            # per superblock: f32 matrices to the compute dtype, the rest f32
+            return t.to(cd) if t.is_floating_point() and t.dim() >= 3 else t.to(_F32)
+
+        params = {
+            "embed": raw["embed"].to(dev).to(cd),
+            "blocks": {i: {name: block_leaf(t) for name, t in sub.items()}
+                       for i, sub in raw["blocks"].items()},
+            "final_norm": raw["final_norm"].to(dev).to(_F32),
+        }
+        if not self.cfg.tie_embeddings:
+            params["lm_head"] = raw["lm_head"].to(dev).to(cd).to(_F32)
+        return params
+
+    # ---------------------------------------------------------------- pieces
+    def _head(self, params) -> torch.Tensor:
+        """The (d, V) f32 head with values in the compute dtype."""
+        if self.cfg.tie_embeddings:
+            return params["embed"].T.to(_F32)
+        return params["lm_head"]
+
+    def _input(self, x, dtype=None) -> torch.Tensor:
+        return torch.as_tensor(x, device=self.device, dtype=dtype)
+
+    def _embed(self, params, batch) -> torch.Tensor:
+        if self.cfg.embed_input:
+            return params["embed"][self._input(batch["tokens"], torch.int64)]
+        return self._input(batch["frames"]).to(self.compute_dtype)  # audio stub frontend
+
+    def _attn(self, p, h, mode, pos, kv_cache):
+        cfg = self.cfg
+        B, T, _ = h.shape
+        H, G, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        x = rms_norm(h, p["ln"], cfg.norm_eps)
+        q = (x @ p["wq"]).reshape(B, T, H, hd).transpose(1, 2)
+        k = (x @ p["wk"]).reshape(B, T, G, hd).transpose(1, 2)
+        v = (x @ p["wv"]).reshape(B, T, G, hd).transpose(1, 2)
+        if cfg.qk_norm:
+            q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+            k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+        if cfg.rope_theta > 0:
+            positions = pos + torch.arange(T, device=h.device)
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
+        if mode == "prefill":
+            kv_cache["k"][:, :, :T] = k
+            kv_cache["v"][:, :, :T] = v
+            if cfg.attn_repeat_kv and G < H:
+                k, v = k.repeat_interleave(H // G, dim=1), v.repeat_interleave(H // G, dim=1)
+            o = flash_attention(q, k, v, causal=True,
+                                q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+        else:  # decode: the new KV goes in at pos, in place
+            kv_cache["k"][:, :, pos:pos + T] = k
+            kv_cache["v"][:, :, pos:pos + T] = v
+            o = decode_attention(q, kv_cache["k"], kv_cache["v"], pos + 1,
+                                 kv_chunk=cfg.kv_chunk)
+        o = o.transpose(1, 2).reshape(B, T, H * hd)
+        return h + (o @ p["wo"]).to(h.dtype)
+
+    def _xattn(self, p, h, mode, img_embeds, cache):
+        cfg = self.cfg
+        B, T, _ = h.shape
+        H, G, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        x = rms_norm(h, p["ln"], cfg.norm_eps)
+        q = (x @ p["wq"]).reshape(B, T, H, hd).transpose(1, 2)
+        if mode == "decode" and cache is not None:
+            k, v = cache["k_img"], cache["v_img"]
+        else:
+            y = rms_norm(self._input(img_embeds).to(h.dtype), p["ln_kv"], cfg.norm_eps)
+            n_img = y.shape[1]
+            k = (y @ p["wk"]).reshape(B, n_img, G, hd).transpose(1, 2)
+            v = (y @ p["wv"]).reshape(B, n_img, G, hd).transpose(1, 2)
+            if cache is not None:
+                cache["k_img"].copy_(k)
+                cache["v_img"].copy_(v)
+        o = flash_attention(q, k, v, causal=False, q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+        o = o.transpose(1, 2).reshape(B, T, H * hd)
+        return h + torch.tanh(p["gate"]).to(h.dtype) * (o @ p["wo"]).to(h.dtype)
+
+    def _dense_ffn(self, p, h):
+        x = rms_norm(h, p["ln2"], self.cfg.norm_eps)
+        y = (silu(x @ p["w1"]) * (x @ p["w3"])) @ p["w2"]
+        return h + y.to(h.dtype)
+
+    def _moe_ffn(self, p, h):
+        cfg = self.cfg
+        x = rms_norm(h, p["ln2"], cfg.norm_eps)
+        y, _ = moe_ffn(
+            p,
+            x,
+            n_experts=cfg.n_experts,
+            top_k=cfg.top_k,
+            capacity_factor=cfg.capacity_factor,
+            dispatch_mode=cfg.dispatch_mode,
+            shared_expert=cfg.shared_expert,
+        )
+        return h + y.to(h.dtype)
+
+    # --------------------------------------------------------------- forward
+    def _forward(self, params, h, *, mode, pos, cache, img_embeds):
+        """The superblock loop.  Writes the new cache entries into
+        ``cache`` in place and returns the hidden states.  (The MoE aux
+        losses matter only to training, which this port does not run.)"""
+        if mode not in ("prefill", "decode"):
+            raise ValueError(f"mode {mode!r}: the port serves (prefill, decode) only")
+        cfg = self.cfg
+        mixers = {"mamba": (mamba_mix, {"chunk": cfg.ssm_chunk}),
+                  "mlstm": (mlstm_mix, {"n_heads": cfg.xlstm_heads}),
+                  "slstm": (slstm_mix, {"n_heads": cfg.xlstm_heads})}
+        for sb in range(cfg.n_superblocks):
+            for i, (mixer, ffn) in enumerate(cfg.pattern):
+                pm = {name: t[sb] for name, t in params["blocks"][str(i)].items()}
+                csl = ({name: t[sb] for name, t in cache[str(i)].items()}
+                       if str(i) in cache else None)
+                if mixer == "attn":
+                    h = self._attn(pm, h, mode, pos, csl)
+                elif mixer == "xattn":
+                    h = self._xattn(pm, h, mode, img_embeds, csl)
+                else:
+                    fn, opts = mixers[mixer]
+                    x = rms_norm(h, pm["ln"], cfg.norm_eps)
+                    y, state = fn(pm, x, csl if mode == "decode" else None, **opts)
+                    h = h + y.to(h.dtype)
+                    for name, t in state.items():
+                        csl[name].copy_(t)
+                if ffn == "dense":
+                    h = self._dense_ffn(pm, h)
+                elif ffn == "moe":
+                    h = self._moe_ffn(pm, h)
+        return h
+
+    # ------------------------------------------------------------------ API
+    def prefill(self, params, batch, cache) -> tuple[dict, torch.Tensor]:
+        """Causal forward over ``batch["tokens"]`` (B, T) (or ``frames``),
+        filling ``cache``; returns ``(cache, last-token logits (B, V) f32)``."""
+        h = self._embed(params, batch)
+        h = self._forward(params, h, mode="prefill", pos=0, cache=cache,
+                          img_embeds=batch.get("img_embeds"))
+        h = rms_norm(h, params["final_norm"], self.cfg.norm_eps)
+        return cache, h[:, -1].to(_F32) @ self._head(params)
+
+    def decode_step(self, params, cache, batch) -> tuple[dict, torch.Tensor]:
+        """batch: {token: (B,) | frame: (B, d), pos: int} -> (cache, logits)."""
+        pos = int(batch["pos"])
+        if self.cfg.embed_input:
+            h = params["embed"][self._input(batch["token"], torch.int64)][:, None]
+        else:
+            h = self._input(batch["frame"])[:, None].to(self.compute_dtype)
+        h = self._forward(params, h, mode="decode", pos=pos, cache=cache,
+                          img_embeds=batch.get("img_embeds"))
+        h = rms_norm(h, params["final_norm"], self.cfg.norm_eps)
+        return cache, h[:, 0].to(_F32) @ self._head(params)
+
+    # ---------------------------------------------------------------- caches
+    def init_cache(self, batch_size: int, max_seq: int) -> dict:
+        """Zero caches, stacked over superblocks."""
+        cfg = self.cfg
+        B, S = batch_size, max_seq
+        G, hd, d = cfg.n_kv_heads, cfg.hd, cfg.d_model
+        nsb, cd, dev = cfg.n_superblocks, self.compute_dtype, self.device
+
+        def zeros(*shape, dtype=cd):
+            return torch.zeros((nsb, B, *shape), dtype=dtype, device=dev)
+
+        out: dict = {}
+        for i, (mixer, _ffn) in enumerate(cfg.pattern):
+            if mixer == "attn":
+                out[str(i)] = {"k": zeros(G, S, hd), "v": zeros(G, S, hd)}
+            elif mixer == "xattn":
+                n_img = cfg.n_img_tokens
+                out[str(i)] = {"k_img": zeros(G, n_img, hd), "v_img": zeros(G, n_img, hd)}
+            elif mixer == "mamba":
+                di, N, cw = cfg.ssm_expand * d, cfg.ssm_state, cfg.ssm_conv
+                out[str(i)] = {"h": zeros(di, N, dtype=_F32), "conv": zeros(cw - 1, di)}
+            elif mixer == "mlstm":
+                di, Hx = cfg.xlstm_expand * d, cfg.xlstm_heads
+                dh = di // Hx
+                out[str(i)] = {
+                    "C": zeros(Hx, dh, dh, dtype=_F32),
+                    "n": zeros(Hx, dh, dtype=_F32),
+                    "m": zeros(Hx, dtype=_F32).fill_(-math.inf),
+                }
+            elif mixer == "slstm":
+                Hx = cfg.xlstm_heads
+                dh = d // Hx
+                out[str(i)] = {
+                    "h": zeros(Hx, dh, dtype=_F32),
+                    "c": zeros(Hx, dh, dtype=_F32),
+                    "n": zeros(Hx, dh, dtype=_F32).fill_(1.0),
+                    "m": zeros(Hx, dh, dtype=_F32),
+                }
+        return out

@@ -1,8 +1,8 @@
 """Serving on the port: the paged KV-cache manager whose page index is a
 reconstructable B-tree (``pager``), multi-tenant arenas with fused
 cross-tenant reads (``tenants``), and the closed-loop load harnesses that
-verify reads racing rebuilds on both (``loadgen``).  The LM engine is a
-later slice."""
+verify reads racing rebuilds on both (``loadgen``), and the LM serving
+engine over the pager (``engine.ServeEngine``)."""
 
 from repro_torch.core.snapshot import (  # noqa: F401
     AdmissionShed,
@@ -11,7 +11,8 @@ from repro_torch.core.snapshot import (  # noqa: F401
     SnapshotPin,
 )
 
-from . import loadgen, pager, tenants  # noqa: F401
+from . import engine, loadgen, pager, tenants  # noqa: F401
+from .engine import ServeEngine  # noqa: F401
 from .tenants import (  # noqa: F401
     Arena,
     MultiTenantEngine,
@@ -28,8 +29,10 @@ __all__ = [
     "SLOAdmissionController",
     "SLOConfig",
     "SnapshotCell",
+    "ServeEngine",
     "SnapshotPin",
     "TenantRegistry",
+    "engine",
     "loadgen",
     "pager",
     "tenants",

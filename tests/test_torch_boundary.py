@@ -70,6 +70,11 @@ from repro_torch.serve import MultiTenantEngine, TenantRegistry  # noqa: E402
 from repro_torch.serve.loadgen import run_load, run_multitenant_load, run_pager_load  # noqa: E402
 from repro_torch.serve.pager import PagedKVManager  # noqa: E402
 from repro_torch.tools import chaos_soak  # noqa: E402
+from repro_torch.configs import ARCHS  # noqa: E402
+from repro_torch.convert import lm_cache_from_numpy  # noqa: E402
+from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.models.lm import LM  # noqa: E402
+from repro_torch.serve import ServeEngine  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "src" / "repro_torch"
@@ -121,7 +126,12 @@ print(json.dumps([names, bad]))
                  "repro_torch.replication.supervisor", "repro_torch.replication.chaos",
                  "repro_torch.ckpt", "repro_torch.ckpt.checkpoint",
                  "repro_torch.tools.chaos_soak", "repro_torch.core.distsort",
-                 "repro_torch.backends.distributed", "repro_torch.tools.rankgroup"):
+                 "repro_torch.backends.distributed", "repro_torch.tools.rankgroup",
+                 "repro_torch.configs", "repro_torch.configs.base",
+                 "repro_torch.configs.llama3_8b", "repro_torch.configs.paper_index",
+                 "repro_torch.models", "repro_torch.models.layers", "repro_torch.models.moe",
+                 "repro_torch.models.ssm", "repro_torch.models.xlstm", "repro_torch.models.lm",
+                 "repro_torch.serve.engine", "repro_torch.launch", "repro_torch.launch.serve"):
         assert name in names
     assert bad == []
 
@@ -166,6 +176,19 @@ def test_distributed_modules_name_neither_jax_nor_reference_anywhere():
     for name in ("core/distsort.py", "backends/distributed.py", "tools/rankgroup.py",
                  "core/__init__.py", "backends/__init__.py"):
         assert not mention.search((PACKAGE / name).read_text()), name
+
+
+def test_lm_modules_name_neither_jax_nor_reference_anywhere():
+    """The configs, the models, the engine and its launcher name neither
+    JAX's module nor the reference package, not even in a docstring."""
+    mention = re.compile(r"\b(?:import|from)\s+(?:jax|jaxlib|repro)\b(?!_)"
+                         r"|\bjax\.|(?<![\w.])repro\.")
+    files = (sorted((PACKAGE / "configs").glob("*.py")) + sorted((PACKAGE / "models").glob("*.py"))
+             + sorted((PACKAGE / "launch").glob("*.py"))
+             + [PACKAGE / "serve" / "engine.py", PACKAGE / "convert.py"])
+    assert len(files) >= 20
+    for path in files:
+        assert not mention.search(path.read_text()), path.name
 
 
 def test_rank_group_starts_its_ranks_with_spawn(monkeypatch):
@@ -229,6 +252,7 @@ def no_gpu(monkeypatch):
     "save_checkpoint", "checkpoint_index", "restore_checkpoint", "run_soak", "chaos_soak_cli",
     "paged_kv_manager", "run_load", "run_pager_load", "lookup_program",
     "backend_distributed", "distributed_backend", "pipeline_distributed",
+    "lm", "serve_engine", "launch_serve", "lm_cache_from_numpy",
 ])
 def test_default_device_entry_points_raise_without_gpu(no_gpu, entry, tmp_path):
     ks = _keyset()
@@ -273,6 +297,11 @@ def test_default_device_entry_points_raise_without_gpu(no_gpu, entry, tmp_path):
         "distributed_backend": lambda: DistributedBackend(),
         "pipeline_distributed": lambda: ReconstructionPipeline(
             backend="distributed", backend_opts={"capacity_factor": 2.0}),
+        "lm": lambda: LM(ARCHS["llama3-8b"].reduced()),
+        "serve_engine": lambda: ServeEngine(LM(ARCHS["llama3-8b"].reduced(), device="cpu"), {},
+                                            max_seq=32, batch_size=2),
+        "launch_serve": lambda: launch_serve.main(["--arch", "llama3-8b", "--reduced"]),
+        "lm_cache_from_numpy": lambda: lm_cache_from_numpy({"0": {"k": np.zeros(2)}}),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
@@ -289,12 +318,20 @@ def test_serving_entry_points_default_to_cuda():
         assert params["backend"].default == "cuda" and params["device"].default is None
     fields = {f.name: f.default for f in dataclasses.fields(PagedKVManager)}
     assert fields["backend"] == "cuda" and fields["device"] is None
+    for cls in (ServeEngine, LM):
+        fields = {f.name: f.default for f in dataclasses.fields(cls)}
+        assert fields["device"] is None and fields.get("backend", "cuda") == "cuda"
 
 
 def test_explicit_cpu_device_runs_on_the_host(no_gpu):
     res = reconstruct_index(_keyset(), device="cpu")
     assert res.comp_sorted.device.type == "cpu"
     assert res.stats["device"] == "cpu"
+    model = LM(ARCHS["llama3-8b"].reduced(), device="cpu")
+    eng = ServeEngine(model, model.init(torch.Generator().manual_seed(0)), max_seq=32,
+                      batch_size=2, device="cpu")
+    assert eng.generate(np.zeros((2, 4), np.int64), 2).shape == (2, 2)
+    assert eng.pager.device.type == "cpu" and eng._cache["0"]["k"].device.type == "cpu"
 
 
 def test_smoke_script_refuses_to_run_without_gpu(no_gpu, capsys):

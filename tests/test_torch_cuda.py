@@ -1080,3 +1080,129 @@ def test_two_rank_gloo_group_on_the_card_equals_cuda(dev):
     for name in ("pext", "bitonic_block_sort", "merge_rank", "pk_window", "dbit", "probe",
                  "probe_many"):
         assert all(launches[name] > 0 for _, launches in ranks), name
+
+
+# ---------------------------------------------------------------------------
+# the LM serving path on the card against the port on the CPU
+# ---------------------------------------------------------------------------
+
+#: card against host, as a fraction of the host logits' scale (max |x|):
+#: f32 products differ only in their summation order
+LM_F32_TOL = 1e-4
+#: at bf16 each path rounds its products' outputs in its own order
+LM_BF16_TOL = 5e-2
+
+
+def _lm_inputs(cfg, seed=0, b=2, t=32):
+    rng = np.random.default_rng(seed)
+    pre, dec = {}, {"pos": t}
+    if cfg.embed_input:
+        pre["tokens"] = rng.integers(0, cfg.vocab_size, (b, t))
+        dec["token"] = rng.integers(0, cfg.vocab_size, (b,))
+    else:
+        pre["frames"] = rng.normal(size=(b, t, cfg.d_model)).astype(np.float32)
+        dec["frame"] = rng.normal(size=(b, cfg.d_model)).astype(np.float32)
+    if cfg.n_img_tokens:
+        pre["img_embeds"] = dec["img_embeds"] = rng.normal(
+            size=(b, cfg.n_img_tokens, cfg.d_model)).astype(np.float32)
+    return pre, dec
+
+
+def _lm_close(got, want, tol, what):
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    fin = torch.isfinite(want)
+    assert torch.equal(fin, torch.isfinite(got)), what
+    scale = float(want[fin].abs().max()) if bool(fin.any()) else 0.0
+    err = float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) else 0.0
+    assert err <= tol * max(scale, 1e-30), f"{what}: {err} > {tol} x {scale}"
+
+
+#: every arch at f32; at bf16 all but jamba and xlstm, whose recurrent
+#: states amplify rounding past any useful bound
+_LM_ARCHS = ("llama3-8b", "qwen3-moe-235b-a22b", "jamba-v0.1-52b", "xlstm-1.3b",
+             "llama-3.2-vision-90b", "musicgen-large", "llama4-scout-17b-a16e", "granite-34b",
+             "minitron-4b", "internlm2-20b")
+_LM_CASES = [(name, "float32") for name in _LM_ARCHS] + [
+    (name, "bfloat16") for name in _LM_ARCHS if name not in ("jamba-v0.1-52b", "xlstm-1.3b")]
+
+
+@pytest.mark.parametrize("name,dtype", _LM_CASES)
+def test_reduced_lm_on_the_card_equals_the_host(dev, name, dtype):
+    """Each reduced arch's prefill and decode step on the card, from the
+    host's parameters, against the same on the host: logits and caches."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.lm import LM
+
+    td = getattr(torch, dtype)
+    tol = LM_F32_TOL if td == torch.float32 else LM_BF16_TOL
+    cfg = ARCHS[name].reduced()
+    host = LM(cfg, compute_dtype=td, device="cpu")
+    params = host.init(torch.Generator().manual_seed(0))
+    card = LM(cfg, compute_dtype=td, device=dev)
+    card_params = card.prepare(params)
+    pre, dec = _lm_inputs(cfg)
+    outs = []
+    for model, p in ((host, params), (card, card_params)):
+        cache, logits = model.prefill(p, pre, model.init_cache(2, 40))
+        cache, logits2 = model.decode_step(p, cache, dec)
+        outs.append((logits, logits2, cache))
+    (h1, h2, hc), (c1, c2, cc) = outs
+    _lm_close(c1, h1, tol, f"{name} prefill")
+    _lm_close(c2, h2, tol, f"{name} decode")
+    for i in hc:
+        for k in hc[i]:
+            _lm_close(cc[i][k], hc[i][k], tol, f"{name} cache {i}.{k}")
+
+
+def test_engine_on_the_card_equals_the_host(dev):
+    """``ServeEngine`` on the card (``"cuda"`` pager) and on the host give
+    the same greedy tokens, page table, journal and restarts, and every
+    page get answers alike; the card's restarts launch the kernels."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.lm import LM
+    from repro_torch.serve import ServeEngine
+
+    cfg = ARCHS["llama3-8b"].reduced()
+    host = LM(cfg, compute_dtype=torch.float32, device="cpu")
+    params = host.init(torch.Generator().manual_seed(1))
+    card = LM(cfg, compute_dtype=torch.float32, device=dev)
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 16))
+    runs = {}
+    cudalib.reset_launches()
+    for model, p, backend in ((host, params, "torch"), (card, card.prepare(params), "cuda")):
+        eng = ServeEngine(model, p, max_seq=64, batch_size=2, page_tokens=16, backend=backend,
+                          device=model.device)
+        tokens = eng.generate(prompts, 8)
+        st1 = eng.restart()
+        eng.pager.free_seq(1)
+        eng.pager.pages_for(1, 24)
+        st2 = eng.restart()
+        gets = [eng.lookup_page(s, q) for s in range(3) for q in range(5)]
+        runs[backend] = (tokens, list(eng.pager._table.items()),
+                         [{k: st[k] for k in ("index_height", "incremental",
+                                              "log_entries_replayed")} for st in (st1, st2)],
+                         gets)
+    want, got = runs["torch"], runs["cuda"]
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1:] == want[1:]
+    assert want[2][1]["incremental"] is True
+    for name in ("pext", "bitonic_block_sort", "merge_rank", "pk_window", "dbit", "probe"):
+        assert cudalib.LAUNCHES[name] > 0, name
+
+
+def test_launch_serve_runs_on_the_card(dev):
+    """``python -m repro_torch.launch.serve --arch llama3-8b --reduced``
+    runs on the GPU, with no device named."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+                          "llama3-8b", "--reduced"], capture_output=True, text=True, env=env,
+                         cwd=root, timeout=600)
+    assert out.returncode == 0, out.stderr
+    assert torch.cuda.get_device_name(0) in out.stdout
+    assert "generated (4, 32) tokens" in out.stdout and "restart (index rebuild)" in out.stdout
