@@ -19,8 +19,10 @@ device or any phase fails:
    larger than the staging buffer and 9- and 16-word keys (merge-rank),
    windows starting on a word boundary and in the last word (pk-window in
    both forms, probe), tables of odd widths and off 16 bytes (the gather),
-   both dbit forms (positions, bitmap) on runs of 1, 3, 4, 16, 33 and 128
-   words with equal pairs, pairs that differ in the last bit only, keys
+   pext and both dbit forms at the token pipeline's 513-word document
+   keys and at 514 words (pext with 17-bit token words, a quarter of the
+   bits and every bit kept), both dbit forms (positions, bitmap) on runs
+   of 1, 3, 4, 16, 33, 128, 513 and 514 words with equal pairs, pairs that differ in the last bit only, keys
    equal but for the last word and row counts at the tile edges, in
    place and off 16 bytes; both
    forms of the probe (the mask and the lookup's leaf stage) on leaves
@@ -150,7 +152,7 @@ device or any phase fails:
    error.  Each rebuild's wall and path, the gets per second and the
    percentiles are printed;
 15. kernel report: each kernel's launches on the main paths (phases 3, 5,
-   6, 7, 8, 9, 10, 11, 12, 13, 14, 16 and 17, each counted from 0; phase 16's
+   6, 7, 8, 9, 10, 11, 12, 13, 14, 16, 17 and 18, each counted from 0; phase 16's
    summed over its ranks; a lookup graph's
    replay counts the launches its capture recorded), its device time at the
    main path's
@@ -207,7 +209,28 @@ device or any phase fails:
    weights: positions byte-identical, dropped fractions and tokens
    equal, logits within 1e-6 of their scale.  Init, prefill, decode ms
    (median, p90), tokens/s, peak memory, each restart's wall and path
-   and the phase's wall are printed with the card.
+   and the phase's wall are printed with the card;
+18. train (after phase 17, before phase 16): the LM training path.  The
+   token pipeline on ``"cuda"`` at a corpus shard's size:
+   ``shuffle_order`` over 10M document ids (== ``"torch"`` == numpy's
+   lexsort of ``(fnv1a(seed||doc), doc)``) and ``dedup_tokens`` over
+   262,144 ``lm_tokens`` documents of 513 tokens, one in eight a planted
+   copy (== ``"torch"`` == numpy's first occurrences), pext and dbit ==
+   plain at those 513-word keys.  llama3-8b at full width with its 32
+   layers cut to 4 (1.92 B parameters; f32 master weights, gradients and
+   AdamW moments of all 8.03 B would need about 128 GB), master weights
+   from ``seed+62``, batch 4 x 512 from a ``TokenPipeline``: one
+   ``accum=2`` step against one ``accum=1`` step from one start (losses
+   within 1e-2, parameters within two learning rates, the mean gap
+   within 5 % of one), six ``accum=1`` steps on the repeated batch
+   (finite, the first loss within 1.0 of ln V, falling), one traced; step
+   ms, tokens/s, peak, the traced step's busy ms, idle share and
+   launches.  ``repro_torch.launch.train.main`` at repro-100m's full size:
+   20 steps of 8 x 256 with checkpoints every 10, a resume to 30 (the
+   manifest index rebuilt on ``"cuda"``: pk-window and probe launched),
+   the restored tree == the saved one byte for byte, the losses == an
+   uninterrupted 30-step run's within 1e-3; the index rebuild, the
+   checkpoint's bytes and walls.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -378,6 +401,7 @@ PATH_KERNELS = {
     "distributed": ("pext", "bitonic_block_sort", "merge_rank", "pk_window", "dbit", "probe",
                     "probe_many"),
     "lm_serve": ("pext", "bitonic_block_sort", "merge_rank", "pk_window", "dbit", "probe"),
+    "train": ("pext", "bitonic_block_sort", "pk_window", "dbit", "probe"),
 }
 
 
@@ -455,6 +479,22 @@ def edge_checks(dev, rng) -> None:
         words = to_carrier(rand_words(rng, 4099, w), dev)
         check(same(pext(words, plan), pext_plain(words, plan)),
               f"pext kernel != plain on the plan with {name}")
+    # pext at the token pipeline's document keys (513 words: 512 tokens and
+    # the label) and just past them: 17-bit token words, a third of the
+    # bits at random, and every bit (the launcher halves its tile to fit)
+    for w in (513, 514):
+        for name, mask in (("17-bit tokens", 0x0001FFFF), ("a quarter of the bits", None),
+                           ("every bit", None)):
+            words = to_carrier(rand_words(rng, 4099, w, mask or 0xFFFFFFFF), dev)
+            if mask is not None:
+                bm = to_u32(compute_dbitmap(words))
+            elif name == "every bit":
+                bm = np.full(w, 0xFFFFFFFF, np.uint32)
+            else:
+                bm = rand_words(rng, 1, w)[0] & rand_words(rng, 1, w)[0]
+            plan = make_plan(bm, w)
+            check(same(pext(words, plan), pext_plain(words, plan)),
+                  f"pext kernel != plain at W={w} ({name}, {plan.n_bits} bits)")
     # bitonic: duplicates, all-ones keys with a permuted payload, a ragged
     # last block, the full-key width, 128-word keys in a 64-row block, and
     # 512-row blocks of the widths past the register path (24, 110, 111
@@ -646,7 +686,7 @@ def edge_checks(dev, rng) -> None:
     # of the last word only, keys equal but for the last word (rows walk
     # on past the first sector), pair counts at the tile edges (a block
     # takes 256 pairs), runs in place and off 16 bytes
-    for w in (1, 3, 4, 16, 33, 128):
+    for w in (1, 3, 4, 16, 33, 128, 513, 514):
         for n in (2, 256, 257, 258, 4097, 20001):
             keys = sort_words(to_carrier(rand_words(rng, n, w, 0x00FF00FF), dev))[0]
             keys[n // 2] = keys[n // 2 - 1]
@@ -2552,6 +2592,318 @@ def lm_serve_phase(args, dev, launches: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 18: the LM training path
+# ---------------------------------------------------------------------------
+
+#: [train] part A: the token pipeline at a corpus shard's size
+TRAIN_SHUFFLE_DOCS = 10_000_000
+TRAIN_DEDUP = {"docs": 262_144, "seq": 512, "vocab": 128_256, "dup_every": 8}
+#: part B: llama3-8b at full width, depth cut from 32 layers to 4.  The
+#: peak rate is 1e-5 with one warmup step: AdamW's first steps move every
+#: entry by about +-lr, so a 4096-wide dot product moves by about 4096 lr;
+#: at the default 3e-4 the loss rose from 12.5 to 21.0 in six steps on the
+#: H100 (PERF.md, section 6)
+TRAIN_LM = {"arch": "llama3-8b", "layers": 4, "batch": 4, "seq": 512, "steps": 6,
+            "trace_step": 3, "lr": 1e-5}
+#: accum=2 against accum=1 after one step from one start: the losses
+#: within 1e-2 relative; each parameter within two learning rates (the
+#: first AdamW step moves every entry by about +-lr, so a gradient near 0
+#: whose sign the bf16 sums flip moves 2 lr apart) and the mean gap
+#: within 5 % of a learning rate (few such flips)
+ACCUM_LOSS_RTOL = 1e-2
+ACCUM_MAX_LR = 2.0
+ACCUM_MEAN_LR = 0.05
+#: part C: repro-100m through the entry point, 20 steps, a resume to 30;
+#: the resumed losses against an uninterrupted run's (the card's atomics
+#: may reorder the embedding's gradient sums), relative
+TRAIN_RUN = {"batch": 8, "seq": 256, "first": 20, "last": 30, "every": 10}
+RESUME_LOSS_RTOL = 1e-3
+
+
+def fnv1a_numpy(x: np.ndarray, seed: int) -> np.ndarray:
+    """The shuffle's FNV-1a keys in plain numpy (u32 in, u32 out)."""
+    h = np.full(x.shape, (0xCBF29CE484222325 ^ seed) & 0xFFFFFFFF, np.uint64)
+    v = x.astype(np.uint64)
+    for shift in (0, 8, 16, 24):
+        h = (h ^ ((v >> np.uint64(shift)) & np.uint64(0xFF))) * np.uint64(0x01000193)
+        h &= np.uint64(0xFFFFFFFF)
+    return h.astype(np.uint32)
+
+
+def first_occurrences(docs: np.ndarray) -> np.ndarray:
+    """Ascending index of each distinct row's first occurrence, by numpy:
+    ``np.unique(axis=0, return_index=True)`` over each row as one opaque
+    item (the same groups; the order of the groups does not matter)."""
+    rows = np.ascontiguousarray(docs).view(np.dtype((np.void, docs.shape[1] * 4))).ravel()
+    return np.sort(np.unique(rows, return_index=True)[1])
+
+
+def sync_wall(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def tree_bytes_equal(a: dict, b: dict) -> bool:
+    from repro_torch.train.optim import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(same(x, y) for x, y in zip(la, lb))
+
+
+def train_phase(args, dev, launches: dict) -> None:
+    """Phase 18: the LM training path.  Part A: the token pipeline on
+    ``"cuda"`` at a corpus shard's size: ``shuffle_order`` over 10M
+    document ids (== ``"torch"`` on the card == numpy's lexsort of
+    ``(fnv1a(seed||doc), doc)``) and ``dedup_tokens`` over 262,144
+    ``lm_tokens`` documents of 513 tokens (vocab 128,256), one in eight a
+    copy of another row at a seeded position (== ``"torch"`` == numpy's
+    first occurrences); pext and dbit held against their plain versions
+    at the dedup's 513-word keys.  Part B: llama3-8b at its full width
+    with its 32 layers cut to 4 (1.92 B parameters: f32 master weights,
+    gradients and both AdamW moments of the full 8.03 B would need about
+    128 GB), master weights from the seed on the card, batch 4 x 512 from
+    a ``TokenPipeline`` over an ``lm_tokens`` corpus on ``"cuda"``:
+    one ``accum=2`` step against one ``accum=1`` step from the same start,
+    then six ``accum=1`` steps on the repeated batch (finite losses and
+    norms, the first within 1.0 of ln V, the last below the first), one
+    traced.  Part C: ``repro_torch.launch.train.main`` at repro-100m's
+    full size, 20 steps of 8 x 256 with checkpoints every 10, then a
+    resume to 30 whose manifest index is rebuilt on ``"cuda"``: the
+    restored tree == the saved one byte for byte, the resumed losses ==
+    an uninterrupted 30-step run's within the tolerance.  Everything but
+    the checks is the path, counted from 0."""
+    from repro_torch.data import pipeline as data_pipeline
+    from repro_torch.data.synthetic import lm_tokens
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.optim import OptConfig, adamw_init, tree_leaves
+    from repro_torch.train.trainstep import make_train_step
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    acc = launches.setdefault("train", {})
+
+    # -- part A: the token pipeline ---------------------------------------------
+    seed = args.seed + 61
+    part_a = {}
+    with counted(part_a):
+        order, shuffle_s = sync_wall(lambda: data_pipeline.shuffle_order(
+            TRAIN_SHUFFLE_DOCS, seed, backend="cuda", device=dev))
+    add_launches(acc, part_a)
+    order_t, shuffle_torch_s = sync_wall(lambda: data_pipeline.shuffle_order(
+        TRAIN_SHUFFLE_DOCS, seed, backend="torch", device=dev))
+    check(same(order, order_t), "shuffle_order: cuda != torch")
+    doc = np.arange(TRAIN_SHUFFLE_DOCS, dtype=np.uint32)
+    check(np.array_equal(order.cpu().numpy(), np.lexsort((doc, fnv1a_numpy(doc, seed)))),
+          "shuffle_order != numpy's lexsort of (fnv1a(seed||doc), doc)")
+    doc_t = torch.arange(TRAIN_SHUFFLE_DOCS, device=dev)
+    shuffle_plan = make_plan(to_u32(compute_dbitmap(torch.stack(
+        [data_pipeline._fnv1a_vec(doc_t, seed), doc_t], dim=1), dbitmap_fn=adjacent_dbitmap)), 2)
+    del order_t, doc, doc_t
+    d = TRAIN_DEDUP
+    t0 = time.perf_counter()
+    docs = lm_tokens(d["docs"], d["seq"] + 1, d["vocab"], seed=seed)
+    drng = np.random.default_rng(seed)
+    n_dup = d["docs"] // d["dup_every"]
+    docs[drng.permutation(d["docs"])[:n_dup]] = docs[drng.integers(0, d["docs"], n_dup)]
+    docs_s = time.perf_counter() - t0
+    dedup_l = {}
+    with counted(dedup_l):
+        kept, dedup_s = sync_wall(lambda: data_pipeline.dedup_tokens(docs, backend="cuda",
+                                                                     device=dev))
+    add_launches(acc, dedup_l)
+    kept_t, dedup_torch_s = sync_wall(lambda: data_pipeline.dedup_tokens(
+        docs, backend="torch", device=dev))
+    check(same(kept, kept_t), "dedup_tokens: cuda != torch")
+    want = first_occurrences(docs)
+    check(np.array_equal(kept.cpu().numpy(), want), "dedup_tokens != numpy's first occurrences")
+    # the dedup's kernels at its own 513-word keys, against the plain versions
+    words = torch.as_tensor(docs, device=dev).to(torch.int64) & 0xFFFFFFFF
+    sorted_words = sort_words(words)[0]
+    bm = adjacent_dbitmap(sorted_words)
+    check(same(bm, adjacent_dbitmap_plain(sorted_words)),
+          "dbit bitmap form != plain at the dedup's 513-word keys")
+    check(same(adjacent_dbits(sorted_words), adjacent_dbits_plain(sorted_words)),
+          "dbit positions form != plain at the dedup's 513-word keys")
+    plan = make_plan(to_u32(bm), int(words.shape[1]))
+    check(same(pext(words, plan), pext_plain(words, plan)),
+          "pext kernel != plain at the dedup's 513-word keys")
+    line_a = {
+        "shuffle": {"docs": TRAIN_SHUFFLE_DOCS, "cuda_s": shuffle_s, "torch_s": shuffle_torch_s,
+                    "dbitmap_bits": shuffle_plan.n_bits,
+                    "compressed_words": shuffle_plan.n_words_out,
+                    "launches": {k: part_a[k] for k in ("pext", "bitonic_block_sort", "dbit")}},
+        "dedup": {"docs": d["docs"], "tokens": d["seq"] + 1, "vocab": d["vocab"],
+                  "copies_planted": n_dup, "kept": int(kept.numel()), "cuda_s": dedup_s,
+                  "torch_s": dedup_torch_s, "corpus_s": docs_s,
+                  "dbitmap_bits": plan.n_bits, "compressed_words": plan.n_words_out,
+                  "launches": {k: dedup_l[k] for k in ("pext", "bitonic_block_sort", "dbit")}},
+    }
+    print(f"[train] pipeline {json.dumps(line_a)}; {card}", flush=True)
+    del order, kept, kept_t, docs, words, sorted_words
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- part B: llama3-8b at full width, four layers ---------------------------
+    tl = TRAIN_LM
+    cfg = dataclasses.replace(ARCHS[tl["arch"]], n_layers=tl["layers"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = LM(cfg, device=dev)
+
+    def master():  # the same start every time: a generator seeded anew
+        return model.init_master(torch.Generator(device=dev).manual_seed(args.seed + 62))
+
+    params, init_s = sync_wall(master)
+    n_params = lm_param_count(params)
+    corpus = lm_tokens(max(tl["batch"] * 64, 512), tl["seq"] + 1, cfg.vocab_size,
+                       seed=args.seed + 62)
+    with counted(acc):
+        pipe = data_pipeline.TokenPipeline(corpus, tl["batch"], tl["seq"], seed=args.seed + 62,
+                                           device=dev)
+        batch = pipe.batch_at(0)
+    opt_cfg = OptConfig(peak_lr=tl["lr"], warmup_steps=1)
+    step1 = make_train_step(model, opt_cfg, accum=1)
+    step2 = make_train_step(model, opt_cfg, accum=2)
+    # accum=2 against accum=1, one step each from the same start (a step
+    # updates the state it is given, so the start is made again)
+    (p_a, o_a, m_a), accum2_s = sync_wall(lambda: step2(params, adamw_init(params), batch))
+    p_a_host = [t.cpu() for t in tree_leaves(p_a)]  # host RAM: the card holds one state
+    del p_a, o_a, params
+    gc.collect()
+    params = master()
+    opt = adamw_init(params)
+    walls, losses, gnorms, traced = [], [], [], {}
+    (params, opt, m1), wall = sync_wall(lambda: step1(params, opt, batch))
+    walls.append(wall)
+    losses.append(float(m1["loss"]))
+    gnorms.append(float(m1["grad_norm"]))
+    lr = float(m1["lr"])
+    max_gap, sum_gap, flips = 0.0, 0.0, 0
+    for a, h in zip(tree_leaves(params), p_a_host):
+        gap = (a - h.to(dev)).abs()
+        max_gap = max(max_gap, float(gap.max()))
+        sum_gap += float(gap.sum(dtype=torch.float64))
+        flips += int((gap > lr).sum())
+        del gap
+    mean_gap = sum_gap / n_params
+    del p_a_host
+    gc.collect()
+    accum_rel = abs(float(m_a["loss"]) - losses[0]) / abs(losses[0])
+    from torch.profiler import ProfilerActivity, profile
+
+    for i in range(1, tl["steps"]):
+        if i == tl["trace_step"]:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                params, opt, m = step1(params, opt, batch)
+                torch.cuda.synchronize()
+                traced.update(prof=prof, wall_s=time.perf_counter() - t0)
+        else:
+            (params, opt, m), wall = sync_wall(lambda: step1(params, opt, batch))
+            walls.append(wall)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    steady = walls[1:]  # the first step allocates the optimizer's trees
+    tokens = tl["batch"] * tl["seq"]
+    line_b = {
+        "arch": cfg.name, "layers": cfg.n_layers, "full_layers": ARCHS[cfg.name].n_layers,
+        "params": n_params, "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+        "compute_dtype": "bfloat16", "master_dtype": "float32", "batch": tl["batch"],
+        "seq": tl["seq"], "init_s": init_s, "losses": losses, "grad_norms": gnorms, "lr": lr,
+        "first_step_s": walls[0], "accum2_step_s": accum2_s,
+        "step_ms": step_ms(steady), "tokens_per_s": tokens / float(np.median(steady)),
+        "traced_step": {"index": tl["trace_step"], **step_profile(traced)},
+        "peak_gib": peak_gib,
+        "accum": {"loss_1": losses[0], "loss_2": float(m_a["loss"]), "loss_rel": accum_rel,
+                  "max_param_gap": max_gap, "mean_param_gap": mean_gap,
+                  "entries_over_lr": flips},
+    }
+    print(f"[train] llama3-8b {json.dumps(line_b)}; {card}", flush=True)
+    check(accum_rel <= ACCUM_LOSS_RTOL,
+          f"accum=2 loss {float(m_a['loss'])} vs accum=1 {losses[0]}")
+    check(max_gap <= ACCUM_MAX_LR * lr * (1 + 1e-3) and mean_gap <= ACCUM_MEAN_LR * lr,
+          f"accum=2 parameters {max_gap} (max) and {mean_gap} (mean) from accum=1's, lr {lr}")
+    check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+          f"a loss or gradient norm is not finite: {losses} {gnorms}")
+    check(abs(losses[0] - np.log(cfg.vocab_size)) <= 1.0,
+          f"first loss {losses[0]} is not within 1.0 of ln {cfg.vocab_size}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    del params, opt, m, m1, m_a, model, pipe, batch, traced
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- part C: the entry point, a checkpoint and a resume ---------------------
+    c = TRAIN_RUN
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        common = ["--arch", "repro-100m", "--batch", str(c["batch"]), "--seq", str(c["seq"]),
+                  "--log-every", "10", "--seed", str(args.seed + 63)]
+        run_dir, ref_dir = root / "run", root / "straight"
+        with counted(acc):
+            first = launch_train.main(common + ["--steps", str(c["first"]), "--ckpt-every",
+                                                str(c["every"]), "--ckpt-dir", str(run_dir)])
+        (back, stats) = restore_checkpoint(run_dir, c["first"], (first["params"], first["opt"]),
+                                           device=dev, index_device=dev)
+        check(tree_bytes_equal(back[0], first["params"]) and tree_bytes_equal(back[1],
+                                                                               first["opt"]),
+              "the restored train state differs from the saved one")
+        del back
+        resume_l = {}
+        with counted(resume_l):
+            second = launch_train.main(common + ["--steps", str(c["last"]), "--ckpt-every",
+                                                 str(c["every"]), "--ckpt-dir", str(run_dir)])
+        add_launches(acc, resume_l)
+        check(second["restored"]["index_backend"] == "cuda"
+              and second["restored"]["meta"]["step"] == c["first"],
+              f"the resume did not restore step {c['first']} on cuda: {second['restored']}")
+        check(resume_l["pk_window"] > 0 and resume_l["probe"] > 0,
+              f"the restore launched no pk-window or probe kernel: {resume_l}")
+        with counted(acc):
+            straight = launch_train.main(common + ["--steps", str(c["last"]), "--ckpt-every",
+                                                   "1000", "--ckpt-dir", str(ref_dir)])
+        got = {**first["losses"], **second["losses"]}
+        want = straight["losses"]
+        check(sorted(got) == sorted(want) == list(range(1, c["last"] + 1)),
+              "the runs' steps differ")
+        rel = max(abs(got[s] - want[s]) / abs(want[s]) for s in want)
+        check(rel <= RESUME_LOSS_RTOL and all(np.isfinite(list(got.values()))),
+              f"resumed losses differ from the uninterrupted run's by {rel}")
+        step_dir = run_dir / f"step_{c['first']:08d}"
+        line_c = {
+            "arch": "repro-100m", "params": lm_param_count(first["params"]),
+            "batch": c["batch"], "seq": c["seq"], "steps": c["last"],
+            "tokens_per_s": {"first": first["tokens_per_s"], "resumed": second["tokens_per_s"],
+                             "straight": straight["tokens_per_s"]},
+            "losses": [got[s] for s in sorted(got)], "max_resume_rel": rel,
+            "index_rebuild_ms": second["restored"]["index_rebuild_s"] * 1e3,
+            "restore_leaves": second["restored"]["n_leaves"],
+            "index_height": second["restored"]["index_height"],
+            "compression_ratio": second["restored"]["compression_ratio"],
+            "checkpoint_bytes": dir_bytes(step_dir),
+            "checkpoint_walls_s": [s["wall_s"] for s in first["saves"] + second["saves"]],
+            "restore_launches": {k: resume_l[k] for k in ("pk_window", "probe", "pext",
+                                                          "bitonic_block_sort", "dbit")},
+        }
+        print(f"[train] launch {json.dumps(line_c)}; {card}", flush=True)
+        del first, second, straight
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check_launches("train", acc)
+    print(f"[train] launches {json.dumps(acc)}; shuffle and dedup on cuda == torch == numpy; "
+          "pext and dbit == plain at 513-word keys; llama3-8b (4 of 32 layers) accum=2 == "
+          "accum=1 within the stated bounds, loss falling over 6 steps; repro-100m resumed "
+          f"through the index on cuda == an uninterrupted run within {RESUME_LOSS_RTOL}; "
+          f"the phase took {time.perf_counter() - t_phase:.1f} s; {card}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # phase 16: the distributed backend, four gloo ranks sharing the card
 # ---------------------------------------------------------------------------
 
@@ -3104,6 +3456,9 @@ def main(argv=None) -> int:
 
     # -- 17. lm_serve: llama3-8b served and restarted, qwen3-moe's two dispatches -
     lm_serve_phase(args, dev, launches)
+
+    # -- 18. train: the token pipeline, llama3-8b's train step, launch.train ----
+    train_phase(args, dev, launches)
 
     # -- 16. distributed: four gloo ranks on the card, one NCCL rank here -------
     # (before the report, which counts its launches)

@@ -36,7 +36,12 @@ flattened as the reference flattens a pytree: dict keys in sorted order
 (an ``OrderedDict`` in its own order), a leaf named by its path joined
 with ``/`` — a dict key as ``str(key)``, a sequence index as ``[i]``, a
 named tuple's field as ``.name`` — and ``None`` holding no leaf.  Leaf
-``i`` of the flattening is stored as ``leaf_{i:06d}.npy``.
+``i`` of the flattening is stored as ``leaf_{i:06d}.npy``.  A leaf may be
+a numpy array or a tensor on any device and of any dtype: it is saved as
+the reference saves the array of the same dtype, so a bfloat16 leaf is
+stored as its raw two-byte words (numpy's ``V2``) and restores as ``V2``
+in either package; ``restore_checkpoint(device=...)`` turns such a leaf
+back into a bfloat16 tensor.
 
 Fault-tolerance properties:
   * atomic commit (DONE marker written last; partial checkpoints ignored);
@@ -106,8 +111,29 @@ def _leaves(node, path: tuple = ()):
         yield from _leaves(child, path + (part,))
 
 
+def _leaf_array(leaf) -> np.ndarray:
+    """A leaf as the array the reference would save for it: a tensor comes
+    to the host; bfloat16 (which numpy lacks) as its raw ``V2`` words."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.contiguous().view(torch.int16).numpy().view("V2")
+        return t.numpy()
+    return np.asarray(leaf)
+
+
+def _names(tree) -> list[str]:
+    return ["/".join(path) for path, _ in _leaves(tree)]
+
+
+def _iter_flat(tree):
+    """(name, array) of every leaf, each brought to the host only as the
+    iteration reaches it."""
+    return (("/".join(path), _leaf_array(leaf)) for path, leaf in _leaves(tree))
+
+
 def _flatten(tree) -> list[tuple[str, np.ndarray]]:
-    return [("/".join(path), np.asarray(leaf)) for path, leaf in _leaves(tree)]
+    return list(_iter_flat(tree))
 
 
 def _unflatten(like, leaves):
@@ -156,7 +182,7 @@ def save_checkpoint(ckpt_dir: str | os.PathLike, step: int, tree,
     tmp.mkdir(parents=True)
 
     rows_keys, rows_files, rows_names = [], [], []
-    for i, (name, arr) in enumerate(_flatten(tree)):
+    for i, (name, arr) in enumerate(_iter_flat(tree)):
         fn = f"leaf_{i:06d}.npy"
         np.save(tmp / fn, arr)
         rows_keys.append(_manifest_key(name))
@@ -272,7 +298,7 @@ def save_checkpoint_delta(ckpt_dir: str | os.PathLike, step: int, tree,
     delta_names: list[str] = []
     inserted_keys: list[np.ndarray] = []
     seen: set[str] = set()
-    for name, arr in _flatten(tree):
+    for name, arr in _iter_flat(tree):
         seen.add(name)
         if name in live:
             old = np.load(base_dir / base_files[live[name]])
@@ -454,9 +480,12 @@ class CheckpointIndex:
 
 def _place(arr: np.ndarray, device) -> torch.Tensor:
     """A restored leaf as a tensor on ``device``; ``uint32`` leaves become
-    the port's int64 carriers (``repro_torch.core.u32``)."""
+    the port's int64 carriers (``repro_torch.core.u32``), ``V2`` leaves
+    (bfloat16 words) bfloat16 tensors."""
     if arr.dtype == np.uint32:
         return to_carrier(arr, device)
+    if arr.dtype == np.dtype("V2"):
+        return torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16).to(device)
     return torch.as_tensor(arr).to(device)
 
 
@@ -479,7 +508,7 @@ def restore_checkpoint(ckpt_dir: str | os.PathLike, step: int, like_tree,
     idx = CheckpointIndex(step_dir, backend=backend, device=index_device)
 
     out = []
-    for name, _ in _flatten(like_tree):
+    for name in _names(like_tree):
         arr = np.load(step_dir / idx.lookup(name))
         out.append(arr if device is None else _place(arr, device))
     tree = _unflatten(like_tree, iter(out))

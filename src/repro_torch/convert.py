@@ -28,6 +28,10 @@ __all__ = [
     "stacked_tree_to_numpy",
     "result_to_numpy",
     "lm_params_from_numpy",
+    "lm_master_from_numpy",
+    "lm_params_to_numpy",
+    "adamw_state_from_numpy",
+    "adamw_state_to_numpy",
     "lm_cache_from_numpy",
     "lm_cache_to_numpy",
 ]
@@ -182,6 +186,33 @@ def lm_params_from_numpy(tree: dict, model) -> dict:
     parameters for ``model`` (an ``repro_torch.models.lm.LM``), cast once
     as ``LM.prepare`` casts."""
     return model.prepare(_map_tree(_float_tensor, tree))
+
+
+def lm_master_from_numpy(tree: dict, model) -> dict:
+    """The reference's (f32) LM parameter tree as numpy -> the port's
+    master parameters for ``model``: every leaf f32 on its device, values
+    unchanged."""
+    return _map_tree(lambda a: _float_tensor(a).to(model.device, torch.float32), tree)
+
+
+def lm_params_to_numpy(params: dict) -> dict:
+    """LM parameters (either form) as numpy f32 arrays, copied."""
+    return _map_tree(lambda t: np.array(t.detach().to(torch.float32).cpu().numpy()), params)
+
+
+def adamw_state_from_numpy(opt: dict, device=None) -> dict:
+    """The reference's AdamW state as numpy (``m`` and ``v`` trees of f32,
+    an int32 ``step``) -> the port's on ``device``, in the same dtypes."""
+    dev = resolve_device(device)
+    return {"m": _map_tree(lambda a: _float_tensor(a).to(dev, torch.float32), opt["m"]),
+            "v": _map_tree(lambda a: _float_tensor(a).to(dev, torch.float32), opt["v"]),
+            "step": torch.as_tensor(np.asarray(opt["step"]), dtype=torch.int32, device=dev)}
+
+
+def adamw_state_to_numpy(opt: dict) -> dict:
+    """The port's AdamW state as numpy in the reference's dtypes."""
+    return {"m": lm_params_to_numpy(opt["m"]), "v": lm_params_to_numpy(opt["v"]),
+            "step": np.asarray(int(opt["step"]), np.int32)}
 
 
 def lm_cache_from_numpy(tree: dict, device=None) -> dict:

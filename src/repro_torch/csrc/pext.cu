@@ -114,10 +114,19 @@ __global__ void pext_kernel(const int64_t* __restrict__ keys,
 extern "C" int repro_pext(const void* keys, const void* plan, void* out,
                           int64_t n, int n_words, int n_words_out, int n_seg,
                           int n_tables, void* stream) {
-  const int threads = n_words <= 32 ? 128 : 64;
-  const size_t smem = (size_t)n_seg * sizeof(int4) +
-                      (size_t)threads * ((n_words | 1) + (n_words_out | 1)) * 4 +
-                      (size_t)n_tables * 256;
+  // the key and output tiles grow with the widths: past a few hundred
+  // words (a 513-word document key with every bit kept needs 290 KB at 64
+  // rows) halve the tile until the block fits the card's opt-in limit
+  int device = 0, smem_max = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  int threads = n_words <= 32 ? 128 : 64;
+  auto smem_for = [&](int t) {
+    return (size_t)n_seg * sizeof(int4) +
+           (size_t)t * ((n_words | 1) + (n_words_out | 1)) * 4 + (size_t)n_tables * 256;
+  };
+  while (threads > 32 && smem_for(threads) > (size_t)smem_max) threads /= 2;
+  const size_t smem = smem_for(threads);
   if (smem > (size_t)kSmemDefault) {
     const cudaError_t err = cudaFuncSetAttribute(
         pext_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -14,7 +14,8 @@ straight from the ``uint8`` buffer instead of one ``bytes`` object per key.
 At the paper's 10M keys that turns minutes of host time into seconds.
 
 ``dataset_keys`` builds the Table-2 stand-ins (fixed records, URLs,
-titles, genome reads) with the reference's generators.
+titles, genome reads) with the reference's generators, and ``lm_tokens``
+the training path's Zipf token corpus, the same bytes for the same seed.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import numpy as np
 from repro_torch.configs.paper_index import IndexDatasetConfig, ZipfConfig
 from repro_torch.core.keyformat import KeySet, keys_to_words
 
-__all__ = ["zipf_keys", "dataset_keys", "rows_to_keyset"]
+__all__ = ["zipf_keys", "dataset_keys", "rows_to_keyset", "lm_tokens"]
 
 
 def _zipf_choice(rng: np.random.Generator, s: float, k: int, size) -> np.ndarray:
@@ -159,3 +160,9 @@ def dataset_keys(cfg: IndexDatasetConfig, seed: int = 0) -> KeySet:
     keys = sorted(set(keys))
     rng.shuffle(keys)
     return keys_to_words(keys)
+
+
+def lm_tokens(n_docs: int, doc_len: int, vocab: int, seed: int = 0) -> np.ndarray:
+    """Zipf-distributed synthetic token stream, (n_docs, doc_len) int32."""
+    rng = np.random.default_rng(seed)
+    return _zipf_choice(rng, 1.1, vocab, (n_docs, doc_len)).astype(np.int32)

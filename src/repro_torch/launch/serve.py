@@ -14,35 +14,12 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import ARCHS
-from repro_torch.configs.base import ArchConfig
 from repro_torch.core.u32 import resolve_device
+from repro_torch.launch.train import REPRO_100M, resolve_arch  # noqa: F401
 from repro_torch.models.lm import LM
 from repro_torch.serve.engine import ServeEngine
 
 __all__ = ["REPRO_100M", "resolve_arch", "main"]
-
-# ~100M-param end-to-end example model: dense llama-style
-REPRO_100M = ArchConfig(
-    name="repro-100m",
-    family="dense",
-    n_layers=10,
-    d_model=640,
-    n_heads=10,
-    n_kv_heads=5,
-    d_ff=2560,
-    vocab_size=32768,
-    pattern=((("attn", "dense")),),
-    rope_theta=10000.0,
-    q_chunk=128,
-    kv_chunk=128,
-    loss_chunk=128,
-)
-
-
-def resolve_arch(name: str, reduced: bool) -> ArchConfig:
-    cfg = REPRO_100M if name == "repro-100m" else ARCHS[name]
-    return cfg.reduced() if reduced else cfg
 
 
 def main(argv=None) -> dict:

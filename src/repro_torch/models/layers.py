@@ -8,6 +8,9 @@ tightly against the reference, so nothing here calls
 ``F.scaled_dot_product_attention``, whose blocking and reduction order
 are its own.
 
+The loss is the reference's chunked-vocab cross entropy: (B, T, V)
+logits never exist at once, one (B, chunk, V) f32 block at a time.
+
 Where the reference asks for f32 products of bf16 inputs, the port
 up-casts the inputs and multiplies in f32: the reference does the same on
 the CPU, and a bf16 product is exact in f32, so only the summation order
@@ -27,6 +30,7 @@ __all__ = [
     "apply_rope",
     "flash_attention",
     "decode_attention",
+    "chunked_softmax_xent",
 ]
 
 
@@ -205,3 +209,48 @@ def decode_attention(
     l = (w * l_s).sum(dim=-1)  # (B, G, r)
     out = (w[..., None] * acc_s).sum(dim=3) / l[..., None].clamp_min(1e-30)
     return out.reshape(B, Hq, 1, dh).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+
+def chunked_softmax_xent(
+    h: torch.Tensor,
+    lm_head: torch.Tensor,
+    labels: torch.Tensor,
+    mask: torch.Tensor | None = None,
+    chunk: int = 512,
+    z_loss: float = 0.0,
+) -> torch.Tensor:
+    """Cross entropy without materializing (B, T, V) logits.
+
+    h: (B, T, d); lm_head: (d, V); labels: (B, T) integers.  Loops over T
+    in chunks computing per-chunk logits in f32 from the compute-dtype
+    inputs (the reference's scan, one chunk a step); ``mask`` (B, T)
+    weights each position, ``z_loss`` adds ``z_loss * lse^2``.  The
+    mean over the mask's weight, as a () f32 tensor.
+    """
+    B, T, d = h.shape
+    chunk = min(chunk, T)
+    assert T % chunk == 0
+    if mask is None:
+        mask = torch.ones((B, T), dtype=torch.float32, device=h.device)
+    mask = mask.to(torch.float32)
+    labels = labels.to(torch.int64)
+    head = lm_head.float()  # up-cast once: every chunk's product shares it
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(T // chunk):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        logits = h[:, sl].float() @ head  # (B, chunk, V) f32
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[:, sl, None])[..., 0]
+        m_c = mask[:, sl]
+        nll = (lse - gold) * m_c
+        if z_loss:
+            nll = nll + z_loss * (lse * lse) * m_c
+        tot = tot + nll.sum()
+        cnt = cnt + m_c.sum()
+    return tot / torch.clamp(cnt, min=1.0)

@@ -1,24 +1,34 @@
-"""The LM model zoo on PyTorch: one model class covering all ten architectures
-for serving (prefill and decode).
+"""The LM model zoo on PyTorch: one model class covering all ten
+architectures, for training and serving.
 
 A model is a stack of *superblocks*, the config's ``pattern`` of (mixer,
 ffn) sublayers.  Every parameter is stacked over superblocks, as the JAX
 package stacks it for its scan, and the forward pass is a Python loop
-over the superblock index that reads views of the stacked tensors.  Two
+over the superblock index that reads views of the stacked tensors.  Three
 modes share the forward code:
 
+  train    — causal forward over (B, S), chunked-vocab loss, no cache;
   prefill  — causal forward over (B, S) that also fills the caches;
   decode   — single-token step against the caches (B, 1).
 
-Parameters are cast once, when they are made or loaded (``init``,
-``prepare``): every matrix (two or more dims per superblock) and the
-embedding table to ``compute_dtype``, every vector and scalar kept in
-f32, and the output head held in f32 with values rounded through
-``compute_dtype``, so logits are f32 products of ``compute_dtype``
-inputs, as the reference computes them.  Caches are stacked over
-superblocks too (``init_cache``); ``prefill`` and ``decode_step`` write
-them in place and return the same dict, so a caller that still needs the
-old cache passes a copy.
+Parameters come in two forms.  *Serving* parameters are cast once, when
+they are made or loaded (``init``, ``prepare``): every matrix (two or
+more dims per superblock) and the embedding table to ``compute_dtype``,
+every vector and scalar kept in f32, and the output head held in f32
+with values rounded through ``compute_dtype``, so logits are f32
+products of ``compute_dtype`` inputs, as the reference computes them.
+*Master* parameters (``init_master``; ``convert.lm_master_from_numpy``)
+are f32 throughout, as the reference trains them: the forward casts each
+superblock's f32 matrices, the gathered embedding rows and the loss's
+head to ``compute_dtype`` inside autograd's view, so gradients reach the
+f32 leaves.  On serving parameters those casts find nothing to do.
+
+Caches are stacked over superblocks too (``init_cache``); ``prefill`` and
+``decode_step`` write them in place and return the same dict, so a caller
+that still needs the old cache passes a copy.  Training reads no cache
+and writes none.  The reference recomputes each superblock in the
+backward pass (rematerialisation); the port keeps its activations, which
+changes memory, not values.
 """
 
 from __future__ import annotations
@@ -31,7 +41,14 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.u32 import resolve_device
 
-from .layers import apply_rope, decode_attention, flash_attention, rms_norm, silu
+from .layers import (
+    apply_rope,
+    chunked_softmax_xent,
+    decode_attention,
+    flash_attention,
+    rms_norm,
+    silu,
+)
 from .moe import moe_ffn
 from .ssm import mamba_mix
 from .xlstm import mlstm_mix, slstm_mix
@@ -39,6 +56,9 @@ from .xlstm import mlstm_mix, slstm_mix
 __all__ = ["LM"]
 
 _F32 = torch.float32
+#: the MoE aux metrics, summed over the MoE sublayers and averaged over
+#: the superblocks
+_AUX = ("lb_loss", "z_loss", "dropped_frac")
 
 
 # ---------------------------------------------------------------------------
@@ -156,12 +176,21 @@ class LM:
 
     # ----------------------------------------------------------------- init
     def init(self, generator: torch.Generator) -> dict:
-        """Random parameters from ``generator`` (a generator on
+        """Random serving parameters from ``generator`` (a generator on
         ``self.device``), made in their final dtypes: N(0, 1/fan_in)
         matrices, ones for the norms, Mamba's S4D-real ``A_log``."""
+        return self._make(generator, self.compute_dtype)
+
+    def init_master(self, generator: torch.Generator) -> dict:
+        """Random master parameters for training: :meth:`init`'s layout,
+        every leaf f32.  The leaves do not require grad; a train step
+        takes gradients with respect to detached views of them."""
+        return self._make(generator, _F32)
+
+    def _make(self, generator: torch.Generator, dtype: torch.dtype) -> dict:
         cfg = self.cfg
-        one = _Init(1, generator, self.device, self.compute_dtype)
-        mk = _Init(cfg.n_superblocks, generator, self.device, self.compute_dtype)
+        one = _Init(1, generator, self.device, dtype)
+        mk = _Init(cfg.n_superblocks, generator, self.device, dtype)
         params: dict = {"embed": one.lin(cfg.d_model, (cfg.vocab_size, cfg.d_model))[0]}
         params["blocks"] = {
             str(i): _init_sublayer(cfg, mixer, ffn, mk)
@@ -203,9 +232,17 @@ class LM:
     def _input(self, x, dtype=None) -> torch.Tensor:
         return torch.as_tensor(x, device=self.device, dtype=dtype)
 
+    def _cast(self, t: torch.Tensor) -> torch.Tensor:
+        """The reference's per-superblock cast: an f32 leaf of two or more
+        dims to the compute dtype (a no-op on serving parameters)."""
+        return t.to(self.compute_dtype) if t.dtype == _F32 and t.dim() >= 2 else t
+
     def _embed(self, params, batch) -> torch.Tensor:
         if self.cfg.embed_input:
-            return params["embed"][self._input(batch["tokens"], torch.int64)]
+            # gather, then cast: the rows the reference gathers from its
+            # cast table; a repeated token's row gradients add up in f32
+            tokens = self._input(batch["tokens"], torch.int64)
+            return params["embed"][tokens].to(self.compute_dtype)
         return self._input(batch["frames"]).to(self.compute_dtype)  # audio stub frontend
 
     def _attn(self, p, h, mode, pos, kv_cache):
@@ -223,9 +260,10 @@ class LM:
             positions = pos + torch.arange(T, device=h.device)
             q = apply_rope(q, positions, cfg.rope_theta)
             k = apply_rope(k, positions, cfg.rope_theta)
-        if mode == "prefill":
-            kv_cache["k"][:, :, :T] = k
-            kv_cache["v"][:, :, :T] = v
+        if mode in ("train", "prefill"):
+            if mode == "prefill":
+                kv_cache["k"][:, :, :T] = k
+                kv_cache["v"][:, :, :T] = v
             if cfg.attn_repeat_kv and G < H:
                 k, v = k.repeat_interleave(H // G, dim=1), v.repeat_interleave(H // G, dim=1)
             o = flash_attention(q, k, v, causal=True,
@@ -266,7 +304,7 @@ class LM:
     def _moe_ffn(self, p, h):
         cfg = self.cfg
         x = rms_norm(h, p["ln2"], cfg.norm_eps)
-        y, _ = moe_ffn(
+        y, aux = moe_ffn(
             p,
             x,
             n_experts=cfg.n_experts,
@@ -275,22 +313,25 @@ class LM:
             dispatch_mode=cfg.dispatch_mode,
             shared_expert=cfg.shared_expert,
         )
-        return h + y.to(h.dtype)
+        return h + y.to(h.dtype), aux
 
     # --------------------------------------------------------------- forward
     def _forward(self, params, h, *, mode, pos, cache, img_embeds):
         """The superblock loop.  Writes the new cache entries into
-        ``cache`` in place and returns the hidden states.  (The MoE aux
-        losses matter only to training, which this port does not run.)"""
-        if mode not in ("prefill", "decode"):
-            raise ValueError(f"mode {mode!r}: the port serves (prefill, decode) only")
+        ``cache`` in place (``train`` takes no cache) and returns the
+        hidden states and the MoE aux metrics: each summed over the MoE
+        sublayers, over the superblocks, then divided by their number."""
+        if mode not in ("train", "prefill", "decode"):
+            raise ValueError(f"mode {mode!r}: not one of train, prefill, decode")
         cfg = self.cfg
+        cache = cache or {}
+        aux = {k: torch.zeros((), dtype=_F32, device=h.device) for k in _AUX}
         mixers = {"mamba": (mamba_mix, {"chunk": cfg.ssm_chunk}),
                   "mlstm": (mlstm_mix, {"n_heads": cfg.xlstm_heads}),
                   "slstm": (slstm_mix, {"n_heads": cfg.xlstm_heads})}
         for sb in range(cfg.n_superblocks):
             for i, (mixer, ffn) in enumerate(cfg.pattern):
-                pm = {name: t[sb] for name, t in params["blocks"][str(i)].items()}
+                pm = {name: self._cast(t[sb]) for name, t in params["blocks"][str(i)].items()}
                 csl = ({name: t[sb] for name, t in cache[str(i)].items()}
                        if str(i) in cache else None)
                 if mixer == "attn":
@@ -302,21 +343,43 @@ class LM:
                     x = rms_norm(h, pm["ln"], cfg.norm_eps)
                     y, state = fn(pm, x, csl if mode == "decode" else None, **opts)
                     h = h + y.to(h.dtype)
-                    for name, t in state.items():
-                        csl[name].copy_(t)
+                    if csl is not None:  # no cache in train: the state is dropped
+                        for name, t in state.items():
+                            csl[name].copy_(t)
                 if ffn == "dense":
                     h = self._dense_ffn(pm, h)
                 elif ffn == "moe":
-                    h = self._moe_ffn(pm, h)
-        return h
+                    h, a = self._moe_ffn(pm, h)
+                    aux = {k: aux[k] + a[k] for k in _AUX}
+        return h, {k: v / cfg.n_superblocks for k, v in aux.items()}
 
     # ------------------------------------------------------------------ API
+    def loss(self, params, batch) -> tuple[torch.Tensor, dict]:
+        """The training loss of ``batch`` (``tokens`` or ``frames``,
+        ``labels``, optional ``mask`` and ``img_embeds``): the chunked
+        cross entropy, plus ``0.01 lb_loss + 1e-3 z_loss`` with experts;
+        ``(loss, {xent, lb_loss, z_loss, dropped_frac})``, () f32 tensors."""
+        cfg = self.cfg
+        h = self._embed(params, batch)
+        img = batch.get("img_embeds")
+        h, aux = self._forward(params, h, mode="train", pos=0, cache=None, img_embeds=img)
+        h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+        raw = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+        mask = batch.get("mask")
+        xent = chunked_softmax_xent(
+            h, raw.to(self.compute_dtype), self._input(batch["labels"], torch.int64),
+            mask=None if mask is None else self._input(mask), chunk=cfg.loss_chunk)
+        loss = xent
+        if cfg.n_experts:
+            loss = loss + 0.01 * aux["lb_loss"] + 1e-3 * aux["z_loss"]
+        return loss, {"xent": xent, **aux}
+
     def prefill(self, params, batch, cache) -> tuple[dict, torch.Tensor]:
         """Causal forward over ``batch["tokens"]`` (B, T) (or ``frames``),
         filling ``cache``; returns ``(cache, last-token logits (B, V) f32)``."""
         h = self._embed(params, batch)
-        h = self._forward(params, h, mode="prefill", pos=0, cache=cache,
-                          img_embeds=batch.get("img_embeds"))
+        h, _ = self._forward(params, h, mode="prefill", pos=0, cache=cache,
+                             img_embeds=batch.get("img_embeds"))
         h = rms_norm(h, params["final_norm"], self.cfg.norm_eps)
         return cache, h[:, -1].to(_F32) @ self._head(params)
 
@@ -327,8 +390,8 @@ class LM:
             h = params["embed"][self._input(batch["token"], torch.int64)][:, None]
         else:
             h = self._input(batch["frame"])[:, None].to(self.compute_dtype)
-        h = self._forward(params, h, mode="decode", pos=pos, cache=cache,
-                          img_embeds=batch.get("img_embeds"))
+        h, _ = self._forward(params, h, mode="decode", pos=pos, cache=cache,
+                             img_embeds=batch.get("img_embeds"))
         h = rms_norm(h, params["final_norm"], self.cfg.norm_eps)
         return cache, h[:, 0].to(_F32) @ self._head(params)
 

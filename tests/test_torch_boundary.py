@@ -73,6 +73,9 @@ from repro_torch.tools import chaos_soak  # noqa: E402
 from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.convert import lm_cache_from_numpy  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.core.sortkeys import compressed_key_sort  # noqa: E402
+from repro_torch.data.pipeline import TokenPipeline, dedup_tokens, shuffle_order  # noqa: E402
 from repro_torch.models.lm import LM  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
 
@@ -131,7 +134,10 @@ print(json.dumps([names, bad]))
                  "repro_torch.configs.llama3_8b", "repro_torch.configs.paper_index",
                  "repro_torch.models", "repro_torch.models.layers", "repro_torch.models.moe",
                  "repro_torch.models.ssm", "repro_torch.models.xlstm", "repro_torch.models.lm",
-                 "repro_torch.serve.engine", "repro_torch.launch", "repro_torch.launch.serve"):
+                 "repro_torch.serve.engine", "repro_torch.launch", "repro_torch.launch.serve",
+                 "repro_torch.launch.train", "repro_torch.train", "repro_torch.train.optim",
+                 "repro_torch.train.trainstep", "repro_torch.train.compression",
+                 "repro_torch.data.pipeline", "repro_torch.data.synthetic"):
         assert name in names
     assert bad == []
 
@@ -179,14 +185,18 @@ def test_distributed_modules_name_neither_jax_nor_reference_anywhere():
 
 
 def test_lm_modules_name_neither_jax_nor_reference_anywhere():
-    """The configs, the models, the engine and its launcher name neither
-    JAX's module nor the reference package, not even in a docstring."""
+    """The configs, the models, the engine, the training path (optimizer,
+    train step, compression, token pipeline) and the launchers name
+    neither JAX's module nor the reference package, not even in a
+    docstring."""
     mention = re.compile(r"\b(?:import|from)\s+(?:jax|jaxlib|repro)\b(?!_)"
                          r"|\bjax\.|(?<![\w.])repro\.")
     files = (sorted((PACKAGE / "configs").glob("*.py")) + sorted((PACKAGE / "models").glob("*.py"))
-             + sorted((PACKAGE / "launch").glob("*.py"))
-             + [PACKAGE / "serve" / "engine.py", PACKAGE / "convert.py"])
-    assert len(files) >= 20
+             + sorted((PACKAGE / "launch").glob("*.py")) + sorted((PACKAGE / "train").glob("*.py"))
+             + sorted((PACKAGE / "data").glob("*.py"))
+             + [PACKAGE / "serve" / "engine.py", PACKAGE / "convert.py",
+                PACKAGE / "core" / "sortkeys.py", PACKAGE / "ckpt" / "checkpoint.py"])
+    assert len(files) >= 28
     for path in files:
         assert not mention.search(path.read_text()), path.name
 
@@ -253,6 +263,7 @@ def no_gpu(monkeypatch):
     "paged_kv_manager", "run_load", "run_pager_load", "lookup_program",
     "backend_distributed", "distributed_backend", "pipeline_distributed",
     "lm", "serve_engine", "launch_serve", "lm_cache_from_numpy",
+    "launch_train", "shuffle_order", "dedup_tokens", "token_pipeline", "compressed_key_sort",
 ])
 def test_default_device_entry_points_raise_without_gpu(no_gpu, entry, tmp_path):
     ks = _keyset()
@@ -302,6 +313,13 @@ def test_default_device_entry_points_raise_without_gpu(no_gpu, entry, tmp_path):
                                             max_seq=32, batch_size=2),
         "launch_serve": lambda: launch_serve.main(["--arch", "llama3-8b", "--reduced"]),
         "lm_cache_from_numpy": lambda: lm_cache_from_numpy({"0": {"k": np.zeros(2)}}),
+        "launch_train": lambda: launch_train.main(["--arch", "llama3-8b", "--reduced",
+                                                   "--ckpt-dir", str(tmp_path / "train")]),
+        "shuffle_order": lambda: shuffle_order(100, 0),
+        "dedup_tokens": lambda: dedup_tokens(np.zeros((4, 3), np.int32)),
+        "token_pipeline": lambda: TokenPipeline(np.zeros((8, 5), np.int32), 2, 4),
+        "compressed_key_sort": lambda: compressed_key_sort(ks.words, ks.rids,
+                                                           make_plan(np.ones(3, np.uint32), 3)),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

@@ -1206,3 +1206,104 @@ def test_launch_serve_runs_on_the_card(dev):
     assert out.returncode == 0, out.stderr
     assert torch.cuda.get_device_name(0) in out.stdout
     assert "generated (4, 32) tokens" in out.stdout and "restart (index rebuild)" in out.stdout
+
+
+# ---------------------------------------------------------------------------
+# the training path on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", ["llama3-8b", "qwen3-moe-235b-a22b", "jamba-v0.1-52b",
+                                  "xlstm-1.3b"])
+def test_reduced_loss_and_gradients_on_the_card_equal_the_host(dev, name):
+    """``LM.loss`` and every master leaf's gradient on the card, from the
+    host's f32 parameters, against the same on the host at f32."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.lm import LM
+    from repro_torch.train.optim import tree_leaves, tree_map
+
+    cfg = ARCHS[name].reduced()
+    rng = np.random.default_rng(3)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 32)).astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab_size, (2, 32)).astype(np.int32)}
+    host = LM(cfg, compute_dtype=torch.float32, device="cpu")
+    params = host.init_master(torch.Generator().manual_seed(0))
+    card = LM(cfg, compute_dtype=torch.float32, device=dev)
+    outs = []
+    for model, p in ((host, params), (card, tree_map(lambda t: t.to(dev), params))):
+        flat = [t.requires_grad_(True) for t in tree_leaves(p)]
+        loss, metrics = model.loss(p, batch)
+        outs.append((loss, metrics, torch.autograd.grad(loss, flat)))
+    (hl, hm, hg), (cl, cm, cg) = outs
+    _lm_close(cl, hl, LM_F32_TOL, f"{name} loss")
+    for k in hm:
+        _lm_close(cm[k], hm[k], LM_F32_TOL, f"{name} {k}")
+    for i, (c, h) in enumerate(zip(cg, hg)):
+        _lm_close(c, h, 1e-3, f"{name} grad {i}")
+
+
+def test_token_pipeline_on_the_card_equals_torch(dev):
+    """``shuffle_order``, ``dedup_tokens`` and the batches on ``"cuda"``
+    (pext, bitonic and dbit launched) equal ``"torch"`` on the card and
+    numpy's order and first occurrences."""
+    from repro_torch.data import pipeline
+    from repro_torch.data.synthetic import lm_tokens
+
+    n = 100_003
+    cudalib.reset_launches()
+    got = pipeline.shuffle_order(n, 5, backend="cuda", device=dev)
+    for name in ("pext", "bitonic_block_sort", "dbit"):
+        assert cudalib.LAUNCHES[name] > 0, name
+    assert torch.equal(got, pipeline.shuffle_order(n, 5, backend="torch", device=dev))
+    doc = np.arange(n, dtype=np.uint32)
+    key = to_u32(pipeline._fnv1a_vec(to_carrier(doc, dev), 5))
+    np.testing.assert_array_equal(got.cpu().numpy(), np.lexsort((doc, key)))
+    docs = lm_tokens(4096, 129, 128256, seed=2)
+    rng = np.random.default_rng(2)
+    docs[rng.permutation(4096)[:512]] = docs[rng.integers(0, 4096, 512)]
+    kept = pipeline.dedup_tokens(docs, backend="cuda", device=dev)
+    assert torch.equal(kept, pipeline.dedup_tokens(docs, backend="torch", device=dev))
+    np.testing.assert_array_equal(kept.cpu().numpy(),
+                                  np.sort(np.unique(docs, axis=0, return_index=True)[1]))
+    pipe = pipeline.TokenPipeline(docs, 8, 128, seed=1, device=dev)
+    twin = pipeline.TokenPipeline(docs, 8, 128, seed=1, backend="torch", device=dev)
+    for step in (0, 511, 512, 700):
+        for k, v in pipe.batch_at(step).items():
+            assert v.device.type == "cuda" and torch.equal(v, twin.batch_at(step)[k])
+
+
+def test_train_state_checkpoint_from_the_card(dev, tmp_path):
+    """A train state on the card (f32 master leaves, an int32 step, a bf16
+    leaf) saves as host arrays and restores byte for byte, through the
+    manifest index rebuilt on ``"cuda"``."""
+    from repro_torch.ckpt import restore_checkpoint, save_checkpoint
+    from repro_torch.train.optim import adamw_init, tree_leaves
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = {"embed": torch.randn((64, 16), generator=gen, device=dev),
+              "blocks": {"0": {"ln": torch.ones((2, 16), device=dev),
+                               "w": torch.randn((2, 16, 16), generator=gen, device=dev).to(
+                                   torch.bfloat16)}}}
+    state = (params, adamw_init(params))
+    save_checkpoint(tmp_path, 5, state, extra_meta={"step": 5}, device=dev)
+    cudalib.reset_launches()
+    back, stats = restore_checkpoint(tmp_path, 5, state, device=dev, index_device=dev)
+    assert stats["index_backend"] == "cuda" and cudalib.LAUNCHES["probe"] > 0
+    for a, b in zip(tree_leaves({"p": back[0], "o": back[1]}),
+                    tree_leaves({"p": state[0], "o": state[1]})):
+        assert a.device.type == "cuda" and a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_launch_train_runs_and_resumes_on_the_card(dev, tmp_path):
+    """``repro_torch.launch.train`` with no device named trains on the GPU
+    and resumes from its checkpoint."""
+    from repro_torch.launch.train import main
+
+    common = ["--arch", "llama3-8b", "--reduced", "--batch", "4", "--seq", "32",
+              "--ckpt-dir", str(tmp_path), "--log-every", "5"]
+    first = main(common + ["--steps", "10", "--ckpt-every", "5"])
+    assert next(iter(first["params"]["blocks"]["0"].values())).device.type == "cuda"
+    second = main(common + ["--steps", "15", "--ckpt-every", "5"])
+    assert second["restored"]["meta"]["step"] == 10
+    assert sorted(second["losses"]) == list(range(11, 16))
+    assert all(np.isfinite(v) for v in second["losses"].values())

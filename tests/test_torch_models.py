@@ -42,6 +42,7 @@ from repro_torch.configs import paper_index  # noqa: E402
 from repro_torch.convert import (  # noqa: E402
     lm_cache_from_numpy,
     lm_cache_to_numpy,
+    lm_master_from_numpy,
     lm_params_from_numpy,
 )
 from repro_torch.models import layers, moe, ssm, xlstm  # noqa: E402
@@ -493,7 +494,22 @@ def test_cache_round_trip_and_dtypes():
     assert bf["0"]["k"].dtype == torch.bfloat16
 
 
-def test_forward_serves_prefill_and_decode_only():
-    model = LM(ARCHS["llama3-8b"].reduced(), device="cpu")
-    with pytest.raises(ValueError, match="prefill, decode"):
-        model._forward({}, None, mode="train", pos=0, cache={}, img_embeds=None)
+def test_forward_train_mode_matches_reference():
+    """``_forward(mode="train")`` on master (f32) parameters, no cache:
+    the hidden states and the (zero, dense) aux metrics of reduced
+    llama3-8b at f32 against the reference's train-mode forward; a mode
+    outside train, prefill and decode raises."""
+    rcfg = REF_ARCHS["llama3-8b"].reduced()
+    ref = RefLM(rcfg, compute_dtype=jnp.float32, remat=False)
+    raw = _ref_init("llama3-8b")
+    model = LM(ARCHS["llama3-8b"].reduced(), compute_dtype=torch.float32, device="cpu")
+    params = lm_master_from_numpy(jax.tree_util.tree_map(np.asarray, raw), model)
+    h = _rand(np.random.default_rng(12), B, T, rcfg.d_model)
+    want, caches, want_aux = jax.jit(lambda p, x: ref._forward(
+        p, x, mode="train", pos=jnp.int32(0), cache=None, img_embeds=None))(raw, jnp.asarray(h))
+    got, aux = model._forward(params, _t(h), mode="train", pos=0, cache=None, img_embeds=None)
+    _close(got, want, F32_TOL, "train-mode hidden states")
+    assert caches == {} and sorted(aux) == sorted(want_aux)
+    assert all(float(aux[k]) == float(want_aux[k]) == 0.0 for k in aux)
+    with pytest.raises(ValueError, match="train, prefill, decode"):
+        model._forward(params, _t(h), mode="score", pos=0, cache=None, img_embeds=None)
