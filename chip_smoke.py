@@ -152,7 +152,7 @@ device or any phase fails:
    error.  Each rebuild's wall and path, the gets per second and the
    percentiles are printed;
 15. kernel report: each kernel's launches on the main paths (phases 3, 5,
-   6, 7, 8, 9, 10, 11, 12, 13, 14, 16, 17 and 18, each counted from 0; phase 16's
+   6, 7, 8, 9, 10, 11, 12, 13, 14, 16, 17, 18 and 19, each counted from 0; phase 16's
    summed over its ranks; a lookup graph's
    replay counts the launches its capture recorded), its device time at the
    main path's
@@ -222,15 +222,32 @@ device or any phase fails:
    from ``seed+62``, batch 4 x 512 from a ``TokenPipeline``: one
    ``accum=2`` step against one ``accum=1`` step from one start (losses
    within 1e-2, parameters within two learning rates, the mean gap
-   within 5 % of one), six ``accum=1`` steps on the repeated batch
-   (finite, the first loss within 1.0 of ln V, falling), one traced; step
-   ms, tokens/s, peak, the traced step's busy ms, idle share and
-   launches.  ``repro_torch.launch.train.main`` at repro-100m's full size:
+   within 5 % of one), the same held between rematerialised training
+   (the model's default) and ``remat=False`` (losses equal to the bit),
+   six ``accum=1`` steps on the repeated batch (finite, the first loss
+   within 1.0 of ln V, falling), one traced, and three without remat,
+   one traced; for each, step ms, tokens/s, peak and activations, the
+   traced step's busy ms, idle share and launches.  Then llama3-8b at the
+   reference's ``train_4k`` length: 4 x 4096 tokens at ``accum=2``
+   (microbatch 2 x 4096), rematerialised, four steps on one batch, one
+   traced (finite, falling); step ms, tokens/s, peak, and the peak
+   without remat reckoned from the activations measured at 512 tokens.
+   ``repro_torch.launch.train.main`` at repro-100m's full size:
    20 steps of 8 x 256 with checkpoints every 10, a resume to 30 (the
    manifest index rebuilt on ``"cuda"``: pk-window and probe launched),
    the restored tree == the saved one byte for byte, the losses == an
    uninterrupted 30-step run's within 1e-3; the index rebuild, the
-   checkpoint's bytes and walls.
+   checkpoint's bytes and walls;
+19. examples (after phase 18, before phase 16): the example twins run in
+   this process through their ``main(argv)`` on the card, each timed:
+   ``examples/train_lm_torch.py --quick`` (repro-100m, 30 steps of 4 x
+   128, checkpoints at 25 and 30; with step 30's removed, a second run
+   resumes from 25 and its losses equal the first run's within 1e-3),
+   ``examples/serve_moe_torch.py`` (reduced qwen3-moe with the sort
+   dispatch: 16 tokens for 4 sequences, a restart that rebuilds the page
+   index, sequence 2's page 1 found at the page the table holds) and
+   ``examples/replication_torch.py --fast`` (replica B caught up through
+   the checkpoint chain; A, B and the primary byte-identical).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -242,6 +259,7 @@ import atexit
 import dataclasses
 import gc
 import hashlib
+import importlib.util
 import json
 import shutil
 import subprocess
@@ -402,7 +420,10 @@ PATH_KERNELS = {
                     "probe_many"),
     "lm_serve": ("pext", "bitonic_block_sort", "merge_rank", "pk_window", "dbit", "probe"),
     "train": ("pext", "bitonic_block_sort", "pk_window", "dbit", "probe"),
+    "examples": ("pext", "bitonic_block_sort", "merge_rank", "pk_window", "dbit", "probe"),
 }
+#: phase 19: the example twins, run in this process
+EXAMPLES = ROOT / "examples"
 
 
 def check(cond, msg: str) -> None:
@@ -2613,6 +2634,10 @@ TRAIN_LM = {"arch": "llama3-8b", "layers": 4, "batch": 4, "seq": 512, "steps": 6
 ACCUM_LOSS_RTOL = 1e-2
 ACCUM_MAX_LR = 2.0
 ACCUM_MEAN_LR = 0.05
+#: part D: llama3-8b at the reference's train_4k length (seq 4096), depth
+#: cut as in part B and the global batch of 256 (accum 8, a pod's) cut to
+#: 4 at accum 2, so one card takes a microbatch of 2 x 4096; rematerialised
+TRAIN_4K = {"batch": 4, "seq": 4096, "accum": 2, "steps": 4, "trace_step": 3, "lr": 1e-5}
 #: part C: repro-100m through the entry point, 20 steps, a resume to 30;
 #: the resumed losses against an uninterrupted run's (the card's atomics
 #: may reorder the embedding's gradient sums), relative
@@ -2653,6 +2678,79 @@ def tree_bytes_equal(a: dict, b: dict) -> bool:
     return len(la) == len(lb) and all(same(x, y) for x, y in zip(la, lb))
 
 
+def train_steps(step, params, opt, batch, n: int, trace_at: int, dev, after_first=None):
+    """``n`` train steps on one batch from ``(params, opt)``, each ended by
+    a synchronize, step ``trace_at`` under ``torch.profiler`` (left out of
+    the walls); ``after_first(params, metrics)`` runs after the first.  The
+    peak is counted from just before the first step, beside the memory
+    allocated then (the state and whatever earlier phases keep).  Returns
+    ``(params, opt, run)``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = torch.cuda.memory_allocated(dev)
+    run = {"walls": [], "losses": [], "grad_norms": [], "traced": {}, "trace_at": trace_at}
+    for i in range(n):
+        if i == trace_at:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                params, opt, m = step(params, opt, batch)
+                torch.cuda.synchronize()
+                run["traced"].update(prof=prof, wall_s=time.perf_counter() - t0)
+        else:
+            (params, opt, m), wall = sync_wall(lambda: step(params, opt, batch))
+            run["walls"].append(wall)
+        if i == 0:
+            run["lr"] = float(m["lr"])
+            if after_first is not None:
+                after_first(params, m)
+        run["losses"].append(float(m["loss"]))
+        run["grad_norms"].append(float(m["grad_norm"]))
+    run["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    run["state_gib"] = state / 2**30
+    return params, opt, run
+
+
+def autograd_memory(model, params: dict, batch: dict, dev) -> dict:
+    """What one forward and backward of ``model.loss`` take on the card
+    beyond the memory allocated before them: what autograd holds once the
+    forward has run (the activations), and the peak through the backward
+    (the gradient tree included).  The gradients are dropped."""
+    from repro_torch.train.optim import tree_leaves, tree_map
+
+    live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    loss, _ = model.loss(live, batch)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev) - before
+    grads = torch.autograd.grad(loss, tree_leaves(live))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - before
+    del loss, grads, live
+    return {"held_after_forward_gib": held / 2**30, "forward_backward_peak_gib": peak / 2**30}
+
+
+def param_gaps(params: dict, host: list, lr: float, n_params: int) -> dict:
+    """How far ``params`` lie from a host copy of another run's: the
+    largest and the mean gap, and the entries more than ``lr`` apart."""
+    from repro_torch.train.optim import tree_leaves
+
+    max_gap, sum_gap, flips = 0.0, 0.0, 0
+    for a, h in zip(tree_leaves(params), host):
+        gap = (a - h.to(a.device)).abs()
+        max_gap = max(max_gap, float(gap.max()))
+        sum_gap += float(gap.sum(dtype=torch.float64))
+        flips += int((gap > lr).sum())
+        del gap
+    return {"max_param_gap": max_gap, "mean_param_gap": sum_gap / n_params,
+            "entries_over_lr": flips}
+
+
 def train_phase(args, dev, launches: dict) -> None:
     """Phase 18: the LM training path.  Part A: the token pipeline on
     ``"cuda"`` at a corpus shard's size: ``shuffle_order`` over 10M
@@ -2667,9 +2765,15 @@ def train_phase(args, dev, launches: dict) -> None:
     128 GB), master weights from the seed on the card, batch 4 x 512 from
     a ``TokenPipeline`` over an ``lm_tokens`` corpus on ``"cuda"``:
     one ``accum=2`` step against one ``accum=1`` step from the same start,
-    then six ``accum=1`` steps on the repeated batch (finite losses and
-    norms, the first within 1.0 of ln V, the last below the first), one
-    traced.  Part C: ``repro_torch.launch.train.main`` at repro-100m's
+    and one step of ``remat=False`` against one of the default remat (the
+    losses equal to the bit), then six ``accum=1`` steps on the repeated
+    batch (finite losses and norms, the first within 1.0 of ln V, the last
+    below the first), one traced, and two more without remat, one traced;
+    what one forward holds and the backward's peak, with remat and
+    without.  Part D: the same model at ``train_4k``'s 4096 tokens, 4 x
+    4096 at ``accum=2``, rematerialised: four steps on one batch (finite,
+    falling), one traced, what a microbatch's forward holds, and the peak
+    without remat reckoned from part B's.  Part C: ``repro_torch.launch.train.main`` at repro-100m's
     full size, 20 steps of 8 x 256 with checkpoints every 10, then a
     resume to 30 whose manifest index is rebuilt on ``"cuda"``: the
     restored tree == the saved one byte for byte, the resumed losses ==
@@ -2770,70 +2874,126 @@ def train_phase(args, dev, launches: dict) -> None:
     # accum=2 against accum=1, one step each from the same start (a step
     # updates the state it is given, so the start is made again)
     (p_a, o_a, m_a), accum2_s = sync_wall(lambda: step2(params, adamw_init(params), batch))
-    p_a_host = [t.cpu() for t in tree_leaves(p_a)]  # host RAM: the card holds one state
+    # host RAM (a copy even of a host tensor): the card holds one state
+    p_a_host = [t.to("cpu", copy=True) for t in tree_leaves(p_a)]
     del p_a, o_a, params
     gc.collect()
+    # remat off: one step from the same start on the same batch, held against
+    # remat's first below, then a timed step and a traced one
+    model_off = LM(cfg, device=dev, remat=False)
+    step_off = make_train_step(model_off, opt_cfg, accum=1)
+    first_off = {}
+
+    def keep_first_off(p, m):
+        first_off.update(loss=m["loss"].clone(),
+                         host=[t.to("cpu", copy=True) for t in tree_leaves(p)])
+
     params = master()
-    opt = adamw_init(params)
-    walls, losses, gnorms, traced = [], [], [], {}
-    (params, opt, m1), wall = sync_wall(lambda: step1(params, opt, batch))
-    walls.append(wall)
-    losses.append(float(m1["loss"]))
-    gnorms.append(float(m1["grad_norm"]))
-    lr = float(m1["lr"])
-    max_gap, sum_gap, flips = 0.0, 0.0, 0
-    for a, h in zip(tree_leaves(params), p_a_host):
-        gap = (a - h.to(dev)).abs()
-        max_gap = max(max_gap, float(gap.max()))
-        sum_gap += float(gap.sum(dtype=torch.float64))
-        flips += int((gap > lr).sum())
-        del gap
-    mean_gap = sum_gap / n_params
+    params, opt, off = train_steps(step_off, params, adamw_init(params), batch, 3, 2, dev,
+                                   keep_first_off)
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    gaps = {}
+
+    def hold_first_on(p, m):
+        lr = float(m["lr"])
+        gaps["accum"] = param_gaps(p, p_a_host, lr, n_params)
+        gaps["remat"] = param_gaps(p, first_off.pop("host"), lr, n_params)
+        gaps["remat_loss_equal"] = bool(torch.equal(m["loss"], first_off["loss"]))
+
+    params = master()
+    params, opt, on = train_steps(step1, params, adamw_init(params), batch, tl["steps"],
+                                  tl["trace_step"], dev, hold_first_on)
     del p_a_host
     gc.collect()
+    losses, gnorms, lr = on["losses"], on["grad_norms"], on["lr"]
     accum_rel = abs(float(m_a["loss"]) - losses[0]) / abs(losses[0])
-    from torch.profiler import ProfilerActivity, profile
-
-    for i in range(1, tl["steps"]):
-        if i == tl["trace_step"]:
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                params, opt, m = step1(params, opt, batch)
-                torch.cuda.synchronize()
-                traced.update(prof=prof, wall_s=time.perf_counter() - t0)
-        else:
-            (params, opt, m), wall = sync_wall(lambda: step1(params, opt, batch))
-            walls.append(wall)
-        losses.append(float(m["loss"]))
-        gnorms.append(float(m["grad_norm"]))
-    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
-    steady = walls[1:]  # the first step allocates the optimizer's trees
     tokens = tl["batch"] * tl["seq"]
+    remat = {name: {"first_step_ms": run["walls"][0] * 1e3, "step_ms": step_ms(run["walls"][1:]),
+                    "peak_gib": run["peak_gib"], "state_gib": run["state_gib"],
+                    **autograd_memory(m, params, batch, dev),
+                    "traced_step": {"index": run["trace_at"], **step_profile(run["traced"])}}
+             for name, run, m in (("on", on, model), ("off", off, model_off))}
     line_b = {
         "arch": cfg.name, "layers": cfg.n_layers, "full_layers": ARCHS[cfg.name].n_layers,
         "params": n_params, "d_model": cfg.d_model, "vocab": cfg.vocab_size,
         "compute_dtype": "bfloat16", "master_dtype": "float32", "batch": tl["batch"],
         "seq": tl["seq"], "init_s": init_s, "losses": losses, "grad_norms": gnorms, "lr": lr,
-        "first_step_s": walls[0], "accum2_step_s": accum2_s,
-        "step_ms": step_ms(steady), "tokens_per_s": tokens / float(np.median(steady)),
-        "traced_step": {"index": tl["trace_step"], **step_profile(traced)},
-        "peak_gib": peak_gib,
+        "first_step_s": on["walls"][0], "accum2_step_s": accum2_s,
+        "step_ms": step_ms(on["walls"][1:]),
+        "tokens_per_s": tokens / float(np.median(on["walls"][1:])),
+        "traced_step": remat["on"]["traced_step"], "peak_gib": on["peak_gib"],
         "accum": {"loss_1": losses[0], "loss_2": float(m_a["loss"]), "loss_rel": accum_rel,
-                  "max_param_gap": max_gap, "mean_param_gap": mean_gap,
-                  "entries_over_lr": flips},
+                  **gaps["accum"]},
+        "remat": {**remat, "loss_on": losses[0], "loss_off": off["losses"][0],
+                  "losses_equal": gaps["remat_loss_equal"], **gaps["remat"]},
     }
     print(f"[train] llama3-8b {json.dumps(line_b)}; {card}", flush=True)
     check(accum_rel <= ACCUM_LOSS_RTOL,
           f"accum=2 loss {float(m_a['loss'])} vs accum=1 {losses[0]}")
-    check(max_gap <= ACCUM_MAX_LR * lr * (1 + 1e-3) and mean_gap <= ACCUM_MEAN_LR * lr,
-          f"accum=2 parameters {max_gap} (max) and {mean_gap} (mean) from accum=1's, lr {lr}")
-    check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
-          f"a loss or gradient norm is not finite: {losses} {gnorms}")
+    for what in ("accum", "remat"):
+        g = gaps[what]
+        check(g["max_param_gap"] <= ACCUM_MAX_LR * lr * (1 + 1e-3)
+              and g["mean_param_gap"] <= ACCUM_MEAN_LR * lr,
+              f"{what}: parameters {g['max_param_gap']} (max) and {g['mean_param_gap']} "
+              f"(mean) apart after one step, lr {lr}")
+    check(gaps["remat_loss_equal"],
+          f"remat loss {losses[0]} != no-remat loss {off['losses'][0]} (to the bit)")
+    check(all(np.isfinite(losses + off["losses"])) and all(np.isfinite(gnorms)),
+          f"a loss or gradient norm is not finite: {losses} {off['losses']} {gnorms}")
     check(abs(losses[0] - np.log(cfg.vocab_size)) <= 1.0,
           f"first loss {losses[0]} is not within 1.0 of ln {cfg.vocab_size}")
     check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
-    del params, opt, m, m1, m_a, model, pipe, batch, traced
+    del params, opt, m_a, pipe, batch, on, off, model_off
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- part D: llama3-8b at train_4k's length, rematerialised ----------------
+    t4 = TRAIN_4K
+    params = master()
+    corpus = lm_tokens(max(t4["batch"] * 64, 512), t4["seq"] + 1, cfg.vocab_size,
+                       seed=args.seed + 64)
+    with counted(acc):
+        pipe = data_pipeline.TokenPipeline(corpus, t4["batch"], t4["seq"], seed=args.seed + 64,
+                                           device=dev)
+        batch = pipe.batch_at(0)
+    step4 = make_train_step(model, OptConfig(peak_lr=t4["lr"], warmup_steps=1),
+                            accum=t4["accum"])
+    params, opt, d4 = train_steps(step4, params, adamw_init(params), batch, t4["steps"],
+                                  t4["trace_step"], dev)
+    tokens_4k = t4["batch"] * t4["seq"]
+    micro_rows = t4["batch"] // t4["accum"]
+    held = autograd_memory(model, params, {k: v[:micro_rows] for k, v in batch.items()}, dev)
+    steady = d4["walls"][1:]
+    # without remat, reckoned: what part B's forward held without remat,
+    # per token, at the microbatch's tokens (attention's blocks grow with the
+    # square of the length, so this is a floor)
+    held_off = remat["off"]["held_after_forward_gib"] / tokens * micro_rows * t4["seq"]
+    line_d = {
+        "arch": cfg.name, "layers": cfg.n_layers, "full_layers": ARCHS[cfg.name].n_layers,
+        "shape": "train_4k", "seq": t4["seq"], "batch": t4["batch"], "accum": t4["accum"],
+        "microbatch": [t4["batch"] // t4["accum"], t4["seq"]], "remat": True,
+        "reduced": ["n_layers 32 -> 4 (f32 master state of 8.03 B parameters needs about "
+                    "128 GB)", "global batch 256 at accum 8 -> 4 at accum 2 (a pod's batch; "
+                    "one card takes a microbatch of 2 x 4096)"],
+        "losses": d4["losses"], "grad_norms": d4["grad_norms"], "lr": d4["lr"],
+        "first_step_s": d4["walls"][0], "step_ms": step_ms(steady),
+        "tokens_per_s": tokens_4k / float(np.median(steady)),
+        "peak_gib": d4["peak_gib"], "state_gib": d4["state_gib"], "microbatch_memory": held,
+        "traced_step": {"index": d4["trace_at"], **step_profile(d4["traced"])},
+        "reckoned_held_after_forward_without_remat_gib_at_least": held_off,
+        # a microbatch's backward runs beside the state and the accumulator
+        "reckoned_peak_without_remat_gib_at_least":
+            d4["state_gib"] + n_params * 4 / 2**30 + held["forward_backward_peak_gib"]
+            - held["held_after_forward_gib"] + held_off,
+    }
+    print(f"[train] llama3-8b train_4k {json.dumps(line_d)}; {card}", flush=True)
+    check(all(np.isfinite(d4["losses"])) and all(np.isfinite(d4["grad_norms"])),
+          f"train_4k: a loss or gradient norm is not finite: {d4['losses']}")
+    check(d4["losses"][-1] < d4["losses"][0],
+          f"train_4k: the loss did not fall: {d4['losses']}")
+    del params, opt, model, pipe, batch, d4
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2896,9 +3056,84 @@ def train_phase(args, dev, launches: dict) -> None:
     check_launches("train", acc)
     print(f"[train] launches {json.dumps(acc)}; shuffle and dedup on cuda == torch == numpy; "
           "pext and dbit == plain at 513-word keys; llama3-8b (4 of 32 layers) accum=2 == "
-          "accum=1 within the stated bounds, loss falling over 6 steps; repro-100m resumed "
+          "accum=1 and remat == no remat within the stated bounds (losses equal to the bit), "
+          "loss falling over 6 steps, and over 4 at seq 4096; repro-100m resumed "
           f"through the index on cuda == an uninterrupted run within {RESUME_LOSS_RTOL}; "
           f"the phase took {time.perf_counter() - t_phase:.1f} s; {card}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the example twins
+# ---------------------------------------------------------------------------
+
+
+def example_twin(name: str):
+    """``examples/<name>.py`` loaded as a module (its ``main`` not run)."""
+    spec = importlib.util.spec_from_file_location(name, EXAMPLES / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def examples_phase(args, dev, launches: dict) -> None:
+    """Phase 19: the three example twins through their ``main(argv)`` on
+    the card, each timed and held to what its run shows.  The train twin
+    trains repro-100m 30 steps with checkpoints at 25 and 30; with step
+    30's checkpoint removed, a second run resumes from 25 and its losses
+    equal the first run's within ``RESUME_LOSS_RTOL``.  The serve twin's
+    restart rebuilds the page index and finds sequence 2's page 1 at the
+    page the table holds.  The replication twin's replica B catches up
+    through the checkpoint chain and ends byte-identical to A and the
+    primary.  The runs are the path, counted from 0; the checks are not."""
+    t_phase = time.perf_counter()
+    card = card_line()
+    acc = launches.setdefault("examples", {})
+    walls = {}
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_examples_"))
+    try:
+        train_twin = example_twin("train_lm_torch")
+        argv = ["--quick", "--ckpt-dir", str(root / "train")]
+        with counted(acc):
+            first, walls["train_lm"] = sync_wall(lambda: train_twin.main(argv))
+        check([s["step"] for s in first["saves"]] == [25, 30]
+              and sorted(first["losses"]) == list(range(1, 31))
+              and all(np.isfinite(list(first["losses"].values()))),
+              f"train_lm_torch --quick: saves {first['saves']}, losses {first['losses']}")
+        shutil.rmtree(root / "train" / "step_00000030")
+        with counted(acc):
+            second, walls["train_lm_resume"] = sync_wall(lambda: train_twin.main(argv))
+        check(second["restored"]["meta"]["step"] == 25
+              and sorted(second["losses"]) == list(range(26, 31)),
+              f"train_lm_torch did not resume from step 25: {second['restored']}")
+        rel = max(abs(second["losses"][k] - first["losses"][k]) / abs(first["losses"][k])
+                  for k in second["losses"])
+        check(rel <= RESUME_LOSS_RTOL, f"train_lm_torch's resumed losses differ by {rel}")
+        del first, second
+        with counted(acc):
+            served, walls["serve_moe"] = sync_wall(lambda: example_twin("serve_moe_torch").main(
+                []))
+        table = served["engine"].pager._table
+        check(served["tokens"].shape == (4, 16) and served["restart"]["backend"] == "cuda"
+              and served["page"] is not None and served["page"] == table[(2, 1)],
+              f"serve_moe_torch: restart {served['restart']}, page {served['page']}")
+        del served
+        with counted(acc):
+            replicated, walls["replication"] = sync_wall(
+                lambda: example_twin("replication_torch").main(["--fast"]))
+        check(replicated["catchup"] and replicated["a_equals_b"]
+              and replicated["a_equals_primary"],
+              f"replication_torch --fast: {replicated}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check_launches("examples", acc)
+    line = {"walls_s": walls, "train_lm_resume_max_rel": rel, "replication": replicated,
+            "launches": acc, "phase_s": time.perf_counter() - t_phase}
+    print(f"[examples] {json.dumps(line, default=str)}; {card}", flush=True)
+    print("[examples] train_lm_torch resumed from its checkpoint == its first run; "
+          "serve_moe_torch's restart found the page; replication_torch's replicas "
+          f"byte-identical to the primary; {card}", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3459,6 +3694,9 @@ def main(argv=None) -> int:
 
     # -- 18. train: the token pipeline, llama3-8b's train step, launch.train ----
     train_phase(args, dev, launches)
+
+    # -- 19. examples: the example twins on the card -----------------------------
+    examples_phase(args, dev, launches)
 
     # -- 16. distributed: four gloo ranks on the card, one NCCL rank here -------
     # (before the report, which counts its launches)

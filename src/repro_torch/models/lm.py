@@ -26,9 +26,21 @@ f32 leaves.  On serving parameters those casts find nothing to do.
 Caches are stacked over superblocks too (``init_cache``); ``prefill`` and
 ``decode_step`` write them in place and return the same dict, so a caller
 that still needs the old cache passes a copy.  Training reads no cache
-and writes none.  The reference recomputes each superblock in the
-backward pass (rematerialisation); the port keeps its activations, which
-changes memory, not values.
+and writes none.
+
+Training rematerialises each superblock, as the reference does by
+default (``remat=True``): in ``train`` mode with gradients enabled, a
+superblock runs under a non-reentrant ``torch.utils.checkpoint`` whose
+selective policy saves only the outputs of ``aten.mm`` and ``aten.addmm``
+(the products with no batch dimension, the reference's
+``dots_with_no_batch_dims_saveable``) and recomputes the rest in the
+backward pass: the norms, rope, the casts of the f32 master slices,
+attention's batched products and softmax, the MoE dispatch.  No op of
+the forward draws random numbers, so the checkpoint keeps no RNG state.
+Training takes no cache, so a recomputed superblock writes into no
+buffer it did not allocate.  Remat changes memory and time, not values:
+with deterministic kernels the loss and every gradient equal those of
+``remat=False`` bit for bit.
 """
 
 from __future__ import annotations
@@ -37,6 +49,11 @@ import math
 from dataclasses import dataclass
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.u32 import resolve_device
@@ -59,6 +76,21 @@ _F32 = torch.float32
 #: the MoE aux metrics, summed over the MoE sublayers and averaged over
 #: the superblocks
 _AUX = ("lb_loss", "z_loss", "dropped_frac")
+#: the ops whose outputs a rematerialised superblock keeps: a (B, T, d) @
+#: (d, f) product reaches ATen as ``mm``; attention's products and the
+#: MoE experts' reach it as ``bmm``, which has a batch dimension
+_REMAT_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def remat_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """The selective checkpoint's policy: keep the products without a
+    batch dimension, recompute everything else."""
+    return (CheckpointPolicy.MUST_SAVE if op in _REMAT_SAVED
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_contexts():
+    return create_selective_checkpoint_contexts(remat_policy)
 
 
 # ---------------------------------------------------------------------------
@@ -170,6 +202,8 @@ class LM:
     #: where parameters, caches and the forward pass live: CUDA unless the
     #: caller names another device
     device: object = None
+    #: recompute each superblock in the backward pass of ``train`` mode
+    remat: bool = True
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -320,38 +354,60 @@ class LM:
         """The superblock loop.  Writes the new cache entries into
         ``cache`` in place (``train`` takes no cache) and returns the
         hidden states and the MoE aux metrics: each summed over the MoE
-        sublayers, over the superblocks, then divided by their number."""
+        sublayers, over the superblocks, then divided by their number.
+        With ``remat``, a ``train`` superblock runs under the selective
+        checkpoint (module docstring)."""
         if mode not in ("train", "prefill", "decode"):
             raise ValueError(f"mode {mode!r}: not one of train, prefill, decode")
         cfg = self.cfg
         cache = cache or {}
-        aux = {k: torch.zeros((), dtype=_F32, device=h.device) for k in _AUX}
+        remat = self.remat and mode == "train" and torch.is_grad_enabled()
+        aux = [torch.zeros((), dtype=_F32, device=h.device) for _ in _AUX]
+        for sb in range(cfg.n_superblocks):
+            # the f32 slices go in, so the casts inside are recomputed, not held
+            p_sb = {i: {name: t[sb] for name, t in sub.items()}
+                    for i, sub in params["blocks"].items()}
+            c_sb = {i: {name: t[sb] for name, t in sub.items()} for i, sub in cache.items()}
+            if remat:
+                h, a = checkpoint(self._superblock, h, p_sb, c_sb, mode, pos, img_embeds,
+                                  use_reentrant=False, context_fn=_remat_contexts,
+                                  preserve_rng_state=False)
+            else:
+                h, a = self._superblock(h, p_sb, c_sb, mode, pos, img_embeds)
+            aux = [x + y for x, y in zip(aux, a)]
+        return h, {k: v / cfg.n_superblocks for k, v in zip(_AUX, aux)}
+
+    def _superblock(self, h, p_sb, c_sb, mode, pos, img_embeds):
+        """One superblock: every sublayer of ``cfg.pattern`` over ``h``.
+        ``p_sb`` holds this superblock's parameter slices, ``c_sb`` its
+        cache slices (written in place); returns the hidden states and the
+        MoE aux terms summed over the sublayers, in ``_AUX``'s order."""
+        cfg = self.cfg
         mixers = {"mamba": (mamba_mix, {"chunk": cfg.ssm_chunk}),
                   "mlstm": (mlstm_mix, {"n_heads": cfg.xlstm_heads}),
                   "slstm": (slstm_mix, {"n_heads": cfg.xlstm_heads})}
-        for sb in range(cfg.n_superblocks):
-            for i, (mixer, ffn) in enumerate(cfg.pattern):
-                pm = {name: self._cast(t[sb]) for name, t in params["blocks"][str(i)].items()}
-                csl = ({name: t[sb] for name, t in cache[str(i)].items()}
-                       if str(i) in cache else None)
-                if mixer == "attn":
-                    h = self._attn(pm, h, mode, pos, csl)
-                elif mixer == "xattn":
-                    h = self._xattn(pm, h, mode, img_embeds, csl)
-                else:
-                    fn, opts = mixers[mixer]
-                    x = rms_norm(h, pm["ln"], cfg.norm_eps)
-                    y, state = fn(pm, x, csl if mode == "decode" else None, **opts)
-                    h = h + y.to(h.dtype)
-                    if csl is not None:  # no cache in train: the state is dropped
-                        for name, t in state.items():
-                            csl[name].copy_(t)
-                if ffn == "dense":
-                    h = self._dense_ffn(pm, h)
-                elif ffn == "moe":
-                    h, a = self._moe_ffn(pm, h)
-                    aux = {k: aux[k] + a[k] for k in _AUX}
-        return h, {k: v / cfg.n_superblocks for k, v in aux.items()}
+        aux = [torch.zeros((), dtype=_F32, device=h.device) for _ in _AUX]
+        for i, (mixer, ffn) in enumerate(cfg.pattern):
+            pm = {name: self._cast(t) for name, t in p_sb[str(i)].items()}
+            csl = c_sb.get(str(i))
+            if mixer == "attn":
+                h = self._attn(pm, h, mode, pos, csl)
+            elif mixer == "xattn":
+                h = self._xattn(pm, h, mode, img_embeds, csl)
+            else:
+                fn, opts = mixers[mixer]
+                x = rms_norm(h, pm["ln"], cfg.norm_eps)
+                y, state = fn(pm, x, csl if mode == "decode" else None, **opts)
+                h = h + y.to(h.dtype)
+                if csl is not None:  # no cache in train: the state is dropped
+                    for name, t in state.items():
+                        csl[name].copy_(t)
+            if ffn == "dense":
+                h = self._dense_ffn(pm, h)
+            elif ffn == "moe":
+                h, a = self._moe_ffn(pm, h)
+                aux = [x + a[k] for x, k in zip(aux, _AUX)]
+        return h, tuple(aux)
 
     # ------------------------------------------------------------------ API
     def loss(self, params, batch) -> tuple[torch.Tensor, dict]:

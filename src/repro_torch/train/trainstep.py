@@ -6,9 +6,15 @@ from ``torch.autograd`` on ``LM.loss`` with respect to detached views of
 the f32 leaves, and AdamW writes the new values into ``params`` and the
 moments, as the reference's launcher donates both to its jitted step.
 Gradient accumulation reshapes every batch leaf to ``(accum, B/accum,
-...)`` and loops over the microbatches, so peak activation memory is one
-microbatch: f32 gradients are summed, then divided by ``accum``; the loss
-and every metric are averaged, as the reference's ``scan`` does.
+...)`` and loops over the microbatches: f32 gradients are summed, then
+divided by ``accum``; the loss and every metric are averaged, as the
+reference's ``scan`` does.  Peak memory is the state (master parameters,
+both moments, the accumulator and one microbatch's gradient tree) plus
+one microbatch's activations.  With the model's ``remat`` (the default)
+those are the superblocks' inputs and their ``mm`` outputs, the loss's
+logits chunks, and, while one superblock's backward runs, that
+superblock's recomputed intermediates; each microbatch's graph, and the
+checkpoints in it, is freed when ``torch.autograd.grad`` returns.
 
 The reference also pins the gradient accumulator's sharding to the
 parameters' (``param_shardings``) so that GSPMD does not replicate it;

@@ -81,6 +81,9 @@ from repro_torch.serve import ServeEngine  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "src" / "repro_torch"
+#: the examples' twins on the port
+TWINS = [ROOT / "examples" / f"{name}_torch.py"
+         for name in ("quickstart", "train_lm", "serve_moe", "replication")]
 FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|repro)(?:[.\s,]|$)", re.M)
 
 
@@ -98,16 +101,17 @@ def _keyset(n=300, w=3, seed=0) -> KeySet:
 
 def test_package_and_smoke_script_import_neither_jax_nor_reference():
     """A fresh interpreter imports every module of the port and loads
-    ``chip_smoke.py`` as a module (``main`` not run); neither JAX nor the
-    reference package may be loaded after it."""
+    the example twins and ``chip_smoke.py`` as modules (``main`` not run);
+    neither JAX nor the reference package may be loaded after it."""
     code = f"""
 import importlib, importlib.util, pkgutil, sys
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-spec = importlib.util.spec_from_file_location("chip_smoke", {str(ROOT / "chip_smoke.py")!r})
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for path in {[str(p) for p in TWINS] + [str(ROOT / "chip_smoke.py")]!r}:
+    spec = importlib.util.spec_from_file_location("loaded", path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(json.dumps([names, bad]))
@@ -143,7 +147,7 @@ print(json.dumps([names, bad]))
 
 
 def test_sources_name_neither_jax_nor_reference():
-    files = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"] + TWINS
     assert len(files) > 20
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if FORBIDDEN.search(f.read_text())]
@@ -199,6 +203,24 @@ def test_lm_modules_name_neither_jax_nor_reference_anywhere():
     assert len(files) >= 28
     for path in files:
         assert not mention.search(path.read_text()), path.name
+
+
+def test_example_twins_name_neither_jax_nor_reference_anywhere():
+    """The examples' twins name neither JAX's module nor the reference
+    package, not even in a docstring."""
+    mention = re.compile(r"\b(?:import|from)\s+(?:jax|jaxlib|repro)\b(?!_)"
+                         r"|\bjax\.|(?<![\w.])repro\.")
+    assert sorted(p.name for p in (ROOT / "examples").glob("*_torch.py")) == sorted(
+        p.name for p in TWINS)
+    for path in TWINS:
+        assert not mention.search(path.read_text()), path.name
+
+
+def _twin(name: str):
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def test_rank_group_starts_its_ranks_with_spawn(monkeypatch):
@@ -264,6 +286,7 @@ def no_gpu(monkeypatch):
     "backend_distributed", "distributed_backend", "pipeline_distributed",
     "lm", "serve_engine", "launch_serve", "lm_cache_from_numpy",
     "launch_train", "shuffle_order", "dedup_tokens", "token_pipeline", "compressed_key_sort",
+    "train_lm_twin", "serve_moe_twin", "replication_twin",
 ])
 def test_default_device_entry_points_raise_without_gpu(no_gpu, entry, tmp_path):
     ks = _keyset()
@@ -320,6 +343,10 @@ def test_default_device_entry_points_raise_without_gpu(no_gpu, entry, tmp_path):
         "token_pipeline": lambda: TokenPipeline(np.zeros((8, 5), np.int32), 2, 4),
         "compressed_key_sort": lambda: compressed_key_sort(ks.words, ks.rids,
                                                            make_plan(np.ones(3, np.uint32), 3)),
+        "train_lm_twin": lambda: _twin("train_lm_torch").main(
+            ["--quick", "--ckpt-dir", str(tmp_path / "twin")]),
+        "serve_moe_twin": lambda: _twin("serve_moe_torch").main([]),
+        "replication_twin": lambda: _twin("replication_torch").main(["--fast"]),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

@@ -1307,3 +1307,44 @@ def test_launch_train_runs_and_resumes_on_the_card(dev, tmp_path):
     assert second["restored"]["meta"]["step"] == 10
     assert sorted(second["losses"]) == list(range(11, 16))
     assert all(np.isfinite(v) for v in second["losses"].values())
+
+
+#: remat against no remat on the card: the forward is the same ops, so the
+#: losses agree to the bit; the backward's atomic sums (the embedding's
+#: rows, the MoE combine's gathers) may add in another order, so each
+#: gradient is held within this share of its leaf's largest magnitude
+REMAT_GRAD_TOL = 1e-5
+
+
+@pytest.mark.parametrize("name", ["llama3-8b", "qwen3-moe-235b-a22b"])
+def test_remat_on_the_card_equals_no_remat_and_holds_less(dev, name):
+    """Reduced llama3-8b and qwen3-moe (``sort`` dispatch) at four
+    superblocks and 4 x 256 tokens: the loss and every gradient with remat
+    against the same without it, from one start, and the peak memory of
+    the loss and its gradients lower with remat."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.lm import LM
+    from repro_torch.train.optim import tree_leaves
+
+    cfg = dataclasses.replace(ARCHS[name].reduced(), dispatch_mode="sort",
+                              n_layers=4 * len(ARCHS[name].pattern))
+    rng = np.random.default_rng(4)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (4, 256)).astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab_size, (4, 256)).astype(np.int32)}
+    outs = {}
+    for remat in (True, False):
+        model = LM(cfg, compute_dtype=torch.float32, device=dev, remat=remat)
+        params = model.init_master(torch.Generator(device=dev).manual_seed(0))
+        flat = [t.requires_grad_(True) for t in tree_leaves(params)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        loss, _ = model.loss(params, batch)
+        grads = torch.autograd.grad(loss, flat)
+        torch.cuda.synchronize()
+        outs[remat] = (loss.detach(), grads, torch.cuda.max_memory_allocated(dev) - base)
+    (l_on, g_on, peak_on), (l_off, g_off, peak_off) = outs[True], outs[False]
+    assert torch.equal(l_on, l_off)
+    for i, (a, b) in enumerate(zip(g_on, g_off)):
+        _lm_close(a, b, REMAT_GRAD_TOL, f"{name} grad {i}")
+    assert peak_on < peak_off, (peak_on, peak_off)

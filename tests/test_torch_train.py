@@ -12,13 +12,19 @@ Tolerances:
 * ``LM.loss`` at f32, every reduced arch: loss and each metric within
   1e-4 (relative, or absolute below 1); gradients of every parameter leaf
   within 1e-3 of the leaf's largest magnitude for llama3-8b, qwen3-moe in
-  both dispatch modes, jamba and xlstm;
+  both dispatch modes, jamba and xlstm; both packages rematerialise, as
+  they do by default;
+* remat against no remat in the port, for the same five cases: the loss
+  and every gradient equal bit for bit, under
+  ``torch.use_deterministic_algorithms`` (without it the CPU's threaded
+  index accumulation in the MoE backward reorders its f32 sums from run
+  to run, with or without remat);
 * bf16 (llama3-8b): loss and gradients within 5e-2 of the scale;
 * ``lr_at`` and ``global_norm`` within 1e-6 relative; one ``adamw_update``
   (in place): parameters, ``m`` and ``v`` within 1e-6 of each leaf's scale;
-* ``make_train_step`` at f32, accum 1 and 2 and three steps in a row: the
-  loss within 1e-3 relative, parameters within 2e-5 (the reference's own
-  accumulation test's bounds);
+* ``make_train_step`` at f32 with remat, accum 1 and 2 and three steps in
+  a row: the loss within 1e-3 relative, parameters within 2e-5 (the
+  reference's own accumulation test's bounds);
 * ``compressed_allreduce_grads`` in a 4-rank gloo group against the
   reference under a 4-device ``shard_map``: residuals within 1e-6 of the
   gradient scale, the mean within the reference test's bound (1/50 of the
@@ -40,6 +46,7 @@ jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
+from torch.utils.checkpoint import CheckpointPolicy  # noqa: E402
 
 from repro.configs import ARCHS as REF_ARCHS  # noqa: E402
 from repro.models import layers as ref_layers  # noqa: E402
@@ -55,6 +62,7 @@ from repro_torch.convert import (  # noqa: E402
     lm_params_to_numpy,
 )
 from repro_torch.models import layers  # noqa: E402
+from repro_torch.models import lm as lm_module  # noqa: E402
 from repro_torch.models.lm import LM  # noqa: E402
 from repro_torch.train import optim  # noqa: E402
 from repro_torch.train.trainstep import init_train_state, make_train_step  # noqa: E402
@@ -164,7 +172,7 @@ def _loss_run(name: str, mode=None, dt: str = "f32", grads: bool = False) -> dic
         return _RUNS[key]
     jd, td = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}[dt]
     rcfg, cfg = _configs(name, mode)
-    ref = RefLM(rcfg, compute_dtype=jd, remat=False)
+    ref = RefLM(rcfg, compute_dtype=jd)
     raw = ref.init(jax.random.PRNGKey(7))
     batch = _batch(cfg)
     jb = jax.tree_util.tree_map(jnp.asarray, batch)
@@ -212,6 +220,83 @@ def test_lm_loss_gradients_f32(case):
         assert np.isfinite(got).all(), (case, i)
         assert _scaled_err(got, want) <= GRAD_TOL, (case, i, _scaled_err(got, want))
     _close_rel(run["port"][0], run["ref"][0], F32_TOL, f"{case} loss")
+
+
+@pytest.fixture
+def deterministic():
+    """Deterministic CPU kernels for the test, restored after it."""
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    yield
+    torch.use_deterministic_algorithms(was)
+
+
+def _port_grads(cfg, remat: bool, batch: dict):
+    model = LM(cfg, compute_dtype=torch.float32, device="cpu", remat=remat)
+    params = model.init_master(torch.Generator().manual_seed(5))
+    flat = [p.requires_grad_(True) for p in optim.tree_leaves(params)]
+    loss, metrics = model.loss(params, batch)
+    return loss.detach(), metrics, torch.autograd.grad(loss, flat)
+
+
+@pytest.mark.parametrize("case", sorted(GRAD_CASES))
+def test_remat_loss_and_gradients_equal_no_remat_bit_for_bit(case, deterministic):
+    """Rematerialising each superblock recomputes the same ops on the same
+    inputs, so the loss, the metrics and every leaf's gradient are those
+    of ``remat=False`` to the bit."""
+    _, cfg = _configs(case.split("/")[0], GRAD_CASES[case])
+    batch = _batch(cfg)
+    (l_on, m_on, g_on), (l_off, m_off, g_off) = (_port_grads(cfg, r, batch)
+                                                 for r in (True, False))
+    assert torch.equal(l_on, l_off)
+    assert all(torch.equal(m_on[k], m_off[k]) for k in m_off)
+    assert len(g_on) == len(g_off)
+    for i, (a, b) in enumerate(zip(g_on, g_off)):
+        assert torch.equal(a, b), (case, i)
+
+
+@pytest.mark.parametrize("name", ["llama3-8b", "qwen3-moe-235b-a22b"])
+def test_remat_keeps_only_the_products_without_batch_dims(name, monkeypatch):
+    """Under remat, autograd holds only what the superblocks' outside saves
+    and, inside, the outputs of ``mm`` (the ops the policy marks
+    ``MUST_SAVE``: wq, wk, wv, wo and the dense FFN's three, or the
+    router's); attention's and the experts' ``bmm`` are recomputed."""
+    cfg = dataclasses.replace(ARCHS[name].reduced(), dispatch_mode="sort")
+    batch = _batch(cfg)
+    decided, policy_fn = [], lm_module.remat_policy
+
+    def spy(ctx, op, *args, **kwargs):
+        policy = policy_fn(ctx, op, *args, **kwargs)
+        decided.append((op, policy, args))
+        return policy
+
+    monkeypatch.setattr(lm_module, "remat_policy", spy)
+    held = {}
+    for remat in (False, True):
+        model = LM(cfg, device="cpu", remat=remat)
+        params = model.init_master(torch.Generator().manual_seed(0))
+        flat = [p.requires_grad_(True) for p in optim.tree_leaves(params)]
+        saved = []
+        with torch.autograd.graph.saved_tensors_hooks(
+                lambda t: saved.append(t.numel() * t.element_size()) or t, lambda t: t):
+            loss, _ = model.loss(params, batch)
+        held[remat] = saved
+        assert all(g is not None for g in torch.autograd.grad(loss, flat))
+    mm = torch.ops.aten.mm.default
+    kept = [(op, args) for op, policy, args in decided
+            if policy == CheckpointPolicy.MUST_SAVE]
+    assert {op for op, _ in kept} == {mm}
+    assert all(policy == CheckpointPolicy.PREFER_RECOMPUTE
+               for op, policy, _ in decided if op != mm)
+    assert torch.ops.aten.bmm.default in {op for op, _, _ in decided}
+    ffn = cfg.pattern[0][1]
+    per_sb = 4 + (3 if ffn == "dense" else 1 + 3 * cfg.shared_expert)
+    assert cfg.pattern == (("attn", ffn),)
+    assert len(kept) == per_sb * cfg.n_superblocks
+    # what remat holds: the saves outside the superblocks and the products
+    kept_bytes = sum(a.shape[0] * b.shape[1] * a.element_size() for _, (a, b) in kept)
+    assert len(held[True]) < len(held[False])
+    assert sum(held[True]) + kept_bytes < sum(held[False])
 
 
 def test_lm_loss_and_gradients_bf16():
@@ -342,7 +427,7 @@ def test_global_norm_and_adamw_update_match_reference():
 
 def _step_setup():
     rcfg = REF_ARCHS["llama3-8b"].reduced()
-    ref = RefLM(rcfg, compute_dtype=jnp.float32, remat=False)
+    ref = RefLM(rcfg, compute_dtype=jnp.float32)
     raw = ref.init(jax.random.PRNGKey(0))
     model = LM(ARCHS["llama3-8b"].reduced(), compute_dtype=torch.float32, device="cpu")
     rng = np.random.default_rng(9)
