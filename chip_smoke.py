@@ -261,6 +261,7 @@ import gc
 import hashlib
 import importlib.util
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -421,6 +422,7 @@ PATH_KERNELS = {
     "lm_serve": ("pext", "bitonic_block_sort", "merge_rank", "pk_window", "dbit", "probe"),
     "train": ("pext", "bitonic_block_sort", "pk_window", "dbit", "probe"),
     "examples": ("pext", "bitonic_block_sort", "merge_rank", "pk_window", "dbit", "probe"),
+    "mesh": ("pext", "bitonic_block_sort", "pk_window", "dbit", "probe"),
 }
 #: phase 19: the example twins, run in this process
 EXAMPLES = ROOT / "examples"
@@ -3405,6 +3407,278 @@ def distributed_phase(args, dev, res, keyset, data: dict, launches: dict) -> Non
           "run == phase 3", flush=True)
 
 
+#: phase 20 ([mesh]): llama3-8b at full width with its 32 layers cut to 4,
+#: as in [train] part B, on a (2, 2) ("data", "model") mesh of four ranks
+#: sharing the card; one step at accum 1, then one at accum 2, each held
+#: against the same step on one rank (the tolerances of [train]'s accum
+#: comparison: tensor parallelism splits the bf16 sums of wo, w2 and the
+#: head, so neither the loss nor the parameters are equal to the bit)
+MESH = {"arch": "llama3-8b", "layers": 4, "batch": 4, "seq": 512, "lr": 1e-5,
+        "shape": (2, 2), "axes": ("data", "model")}
+MESH_RANKS = 4
+#: the threaded ranks rebuild their manifest indexes one at a time
+MESH_INDEX_LOCK = threading.Lock()
+
+
+def tree_digests(tree) -> dict:
+    """SHA-256 of each leaf's bytes, by path: a DTensor leaf gathered whole
+    (a collective: every rank of its mesh calls this)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.ckpt.checkpoint import _leaves
+
+    out = {}
+    for path, leaf in _leaves(tree):
+        t = leaf.full_tensor() if isinstance(leaf, DTensor) else leaf
+        out["/".join(path)] = hashlib.sha256(
+            t.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes()).hexdigest()
+    return out
+
+
+def mesh_rank(rank: int, p: int, host0: dict, batch_np: dict, ckpt_dir: str) -> dict:
+    """One rank (a thread) of [mesh]: place the start on the (2, 2) mesh,
+    step at accum 1 and save, step at accum 2 and save (rank 0 writes
+    the gathered tree), one more step counted by ``OpCounter``, then
+    restore step 2 onto a ("model",) mesh of four through this rank's own
+    manifest index on ``"cuda"``: every leaf equal to the saved one's
+    bytes, on the placements the rules give."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.ckpt.checkpoint import save_checkpoint
+    from repro_torch.distributed.ctx import use_mesh
+    from repro_torch.distributed.sharding import param_spec, to_placements
+    from repro_torch.launch.opcount import OpCounter
+    from repro_torch.launch.shardings import (batch_shardings, guard_spec,
+                                              params_shardings, place)
+    from repro_torch.train.optim import OptConfig, adamw_init, tree_leaves
+    from repro_torch.train.trainstep import make_train_step
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = dataclasses.replace(ARCHS[MESH["arch"]], n_layers=MESH["layers"])
+    model = LM(cfg, device=dev)
+    mesh = init_device_mesh("cuda", MESH["shape"], mesh_dim_names=MESH["axes"])
+    p_sh = params_shardings(mesh, host0)
+
+    def walk(tree, sh):  # one leaf on the card at a time
+        if isinstance(tree, dict):
+            return {k: walk(v, sh[k]) for k, v in tree.items()}
+        return distribute_tensor(tree.to(dev), sh.mesh, sh.placements(tree.dim()),
+                                 src_data_rank=None)
+
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
+    batch = place(batch, batch_shardings(mesh, batch))
+    opt_cfg = OptConfig(peak_lr=MESH["lr"], warmup_steps=1)
+    out = {"rank": rank, "steps": []}
+    for accum in (1, 2):  # each step from the same start
+        params = opt = None
+        params = walk(host0, p_sh)
+        opt = adamw_init(params)
+        if accum == 1:
+            resident = sum(t.to_local().numel() * t.element_size() for t in tree_leaves(
+                params) + tree_leaves({"m": opt["m"], "v": opt["v"]}))
+            out["resident_state_gib"] = resident / 2**30
+            dist.barrier()
+            if rank == 0:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+        step = make_train_step(model, opt_cfg, accum=accum, param_shardings=p_sh)
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with use_mesh(mesh):
+            params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        dist.barrier()
+        out["steps"].append({"accum": accum, "loss": float(m["loss"]),
+                             "grad_norm": float(m["grad_norm"]), "wall_s": wall})
+        if rank == 0:
+            print(f"[mesh] rank 0: step at accum {accum}: {json.dumps(out['steps'][-1])}",
+                  flush=True)
+        t0 = time.perf_counter()
+        save_checkpoint(ckpt_dir, accum, params, device=dev)
+        out["steps"][-1]["save_s"] = time.perf_counter() - t0
+    saved = tree_digests(params)
+    if rank == 0:
+        out["peak_gib_all_ranks"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    # the collectives and matmuls of one more accum=1 step, counted
+    step = make_train_step(model, opt_cfg, accum=1, param_shardings=p_sh)
+    with OpCounter() as ops, use_mesh(mesh):
+        step(params, opt, batch)
+    out["ops"] = ops.summary()
+    del params, opt
+    # elastic restore of step 2 onto ("model",) = 4, one rank at a time:
+    # the ranks share this process, and a lookup graph's capture in one
+    # thread cannot overlap another's device-wide synchronize (the restore
+    # runs no collective, so the lock cannot stall one)
+    mesh1 = init_device_mesh("cuda", (MESH_RANKS,), mesh_dim_names=("model",))
+    with MESH_INDEX_LOCK:
+        t0 = time.perf_counter()
+        got, stats = restore_checkpoint(ckpt_dir, 2, host0, backend="cuda",
+                                        shardings=params_shardings(mesh1, host0))
+        out["restore_s"] = time.perf_counter() - t0
+    out["restore_index_rebuild_s"] = stats["index_rebuild_s"]
+    restored = tree_digests(got)
+    check(restored == saved, f"rank {rank}: the restore onto ('model',) differs from the save")
+
+    def placed_by_rules(tree, path=()):
+        if isinstance(tree, dict):
+            return all(placed_by_rules(v, path + (k,)) for k, v in tree.items())
+        spec = guard_spec(mesh1, param_spec(path, tree), tuple(tree.shape))
+        return tuple(tree.placements) == to_placements(mesh1, spec, tree.dim())
+
+    check(placed_by_rules(got), f"rank {rank}: a restored leaf is not placed as the rules say")
+    out["saved_digests"] = saved if rank == 0 else None
+    return out
+
+
+def mesh_phase(args, dev, launches: dict) -> None:
+    """Phase 20: the LM on a device mesh.  (a) llama3-8b at full width with
+    4 of its 32 layers, batch 4 x 512, remat, AdamW at peak 1e-5: one
+    step at accum 1 and one at accum 2 on one rank, kept on the host; then
+    the same two steps on four ranks (threads of this process in PyTorch's
+    threaded group: gloo's functional-collective wait faulted on CUDA
+    tensors) sharing the card on a (2, 2) ("data", "model") mesh placed by
+    the sharding rules, each saved from the mesh; the losses and the
+    saved parameters against the single rank's within [train]'s accum
+    tolerances; the four ranks' peak together, each rank's state, the
+    step walls, one more step's collectives by kind.  (b) step 2 restored
+    onto ("model",) = 4 on every rank through its own manifest index on
+    ``"cuda"``, equal to the saved tree to the bit and placed as the rules
+    say, and onto one rank (this process), equal to the same digests.
+    (c) fake dry runs (``launch.dryrun``, subprocesses started first and
+    running meanwhile): llama3-8b ``train_4k`` at 256 and 512 ranks, and
+    (a)'s own cell at (2, 2); their peaks, FLOPs, collective bytes and
+    roofline rows at H100 peaks; (a)'s predicted peak beside the measured
+    one.  The restores and the save are the path, counted from 0."""
+    from repro_torch.launch import roofline
+    from repro_torch.tools.rankgroup import run_threads
+    from repro_torch.train.optim import OptConfig, adamw_init, tree_leaves, tree_map
+    from repro_torch.train.trainstep import make_train_step
+
+    t_phase = time.perf_counter()
+    acc = launches.setdefault("mesh", {})
+    work = Path(tempfile.mkdtemp(prefix="chip-smoke-mesh-"))
+    atexit.register(shutil.rmtree, work, True)
+
+    # (c) first: the dry runs trace on the host while (a) and (b) run
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    dry = ([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "llama3-8b",
+            "--shape", "train_4k", "--force", "--out-root", str(work / "dryrun")])
+    small = ["--mesh", "2x2", "--override", f"n_layers={MESH['layers']}", "--batch",
+             str(MESH["batch"]), "--seq", str(MESH["seq"])]
+    procs = {
+        "pod1": subprocess.Popen(dry + ["--mesh", "pod1"], env=env, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True),
+        "pod2": subprocess.Popen(dry + ["--mesh", "pod2"], env=env, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True),
+        "small": subprocess.Popen(
+            dry + small + ["--accum", "1", "--out-suffix", "__a1"], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+    }
+
+    # (a) the single rank first, its results on the host
+    cfg = dataclasses.replace(ARCHS[MESH["arch"]], n_layers=MESH["layers"])
+    model = LM(cfg, device=dev)
+    params = model.init_master(torch.Generator(device=dev).manual_seed(args.seed + 91))
+    host0 = tree_map(lambda t: t.to("cpu", copy=True), params)
+    n_params = sum(t.numel() for t in tree_leaves(host0))
+    rng = np.random.default_rng(args.seed + 92)
+    toks = rng.integers(0, cfg.vocab_size, (MESH["batch"], MESH["seq"] + 1)).astype(np.int64)
+    batch_np = {"tokens": toks[:, :-1].copy(), "labels": toks[:, 1:].copy()}
+    opt_cfg = OptConfig(peak_lr=MESH["lr"], warmup_steps=1)
+    single = []
+    for accum in (1, 2):  # each step from the same start
+        params = opt = m = None
+        params = tree_map(lambda t: t.to(dev), host0)
+        opt = adamw_init(params)
+        step = make_train_step(model, opt_cfg, accum=accum)
+        (params, opt, m), wall = sync_wall(lambda: step(params, opt, batch_np))
+        single.append({"accum": accum, "loss": float(m["loss"]), "wall_s": wall,
+                       "host": [t.to("cpu", copy=True) for t in tree_leaves(params)]})
+    del params, opt, m, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (a) and (b) on the mesh: the save and the restores are the path
+    ckpt_dir = work / "ckpt"
+    with counted(acc):
+        t0 = time.perf_counter()
+        ranks = run_threads(mesh_rank, MESH_RANKS, host0, batch_np, str(ckpt_dir),
+                            timeout=900.0)
+        group_wall = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    lr = MESH["lr"]
+    for i, want in enumerate(single):
+        for r, out in enumerate(ranks):
+            got = out["steps"][i]
+            check(np.isfinite(got["loss"]) and got["loss"] == ranks[0]["steps"][i]["loss"],
+                  f"rank {r}: step {i + 1}'s loss {got['loss']} differs from rank 0's")
+        got = ranks[0]["steps"][i]
+        check(abs(got["loss"] - want["loss"]) <= ACCUM_LOSS_RTOL * abs(want["loss"]),
+              f"mesh step {i + 1} (accum {want['accum']}): loss {got['loss']} against one "
+              f"rank's {want['loss']}")
+    # (b) onto one rank: each saved step through this process's own index
+    like = host0
+    gaps = []
+    for i, want in enumerate(single):
+        with counted(acc):
+            restored, stats = restore_checkpoint(ckpt_dir, i + 1, like, device=dev,
+                                                 backend="cuda")
+        g = param_gaps(restored, want.pop("host"), lr, n_params)
+        check(g["max_param_gap"] <= ACCUM_MAX_LR * lr * (1 + 1e-3)
+              and g["mean_param_gap"] <= ACCUM_MEAN_LR * lr,
+              f"mesh step {i + 1}: parameters against one rank's {g}")
+        gaps.append(g)
+        if i == 1:
+            check(tree_digests(restored) == ranks[0]["saved_digests"],
+                  "the one-rank restore of step 2 differs from the saved tree")
+        del restored
+    del host0, like
+    check_launches("mesh", acc)
+
+    # (c) the dry runs
+    recs = {}
+    for name, proc in procs.items():
+        out, err = proc.communicate(timeout=900)
+        check(proc.returncode == 0, f"dry run {name} failed:\n{out[-2000:]}\n{err[-2000:]}")
+    for mesh_name, suffix in (("pod1", ""), ("pod2", ""), ("2x2", "__a1")):
+        rec = json.loads((work / "dryrun" / mesh_name / f"llama3-8b__train_4k{suffix}.json")
+                         .read_text())
+        check(rec["status"] == "ok", f"dry run {mesh_name}: {rec.get('error')}")
+        recs[mesh_name] = rec
+    for mesh_name in ("pod1", "pod2"):
+        rec = recs[mesh_name]
+        check(rec["memory"]["peak_bytes"] < 80 * 2**30,
+              f"dry run {mesh_name}: peak {rec['memory']['peak_bytes']} past 80 GiB")
+        row = roofline.analyze_cell(rec)
+        print(f"[mesh] dry run {json.dumps({'mesh': mesh_name, 'ranks': rec['n_devices'], 't_trace_s': rec['t_trace_s'], 'memory_gib': {k: v / 2**30 for k, v in rec['memory'].items()}, 'op_summary': rec['op_summary'], 'roofline': row})}",
+              flush=True)
+    predicted = recs["2x2"]["memory"]["peak_bytes"] / 2**30
+    line = {
+        "card": card_line(), "parameters": n_params, "ranks": MESH_RANKS,
+        "mesh": dict(zip(MESH["axes"], MESH["shape"])),
+        "group": "threaded (one process, four threads)",
+        "single": single,
+        "mesh_steps": ranks[0]["steps"], "param_gaps": gaps,
+        "resident_state_gib": [o["resident_state_gib"] for o in ranks],
+        "peak_gib_four_ranks": ranks[0]["peak_gib_all_ranks"],
+        "predicted_peak_gib_a_rank": predicted,
+        "predicted_peak_gib_four_ranks": 4 * predicted,
+        "collectives_a_rank": [o["ops"] for o in ranks],
+        "restore_model4_s": [o["restore_s"] for o in ranks],
+        "group_wall_s": group_wall, "phase_s": time.perf_counter() - t_phase,
+        "launches": acc,
+    }
+    print(f"[mesh] {json.dumps(line)}", flush=True)
+    print("[mesh] the (2, 2) mesh's steps at accum 1 and 2 == one rank's within the tolerances; "
+          "the restore onto ('model',) = 4 and onto one rank == the saved tree to the bit; "
+          "the dry runs fit 80 GiB", flush=True)
+
+
 def main(argv=None) -> int:
     """Run the phases on CUDA device 0."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3701,6 +3975,10 @@ def main(argv=None) -> int:
     # -- 16. distributed: four gloo ranks on the card, one NCCL rank here -------
     # (before the report, which counts its launches)
     distributed_phase(args, dev, res, keyset, dist_data, launches)
+
+    # -- 20. mesh: the sharded train step, elastic restore, the dry runs --------
+    # (before the report, which counts its launches)
+    mesh_phase(args, dev, launches)
 
     # -- 15. kernel report at the main paths' shapes -----------------------------
     b = plancache.bucket(n)

@@ -46,8 +46,12 @@ back into a bfloat16 tensor.
 Fault-tolerance properties:
   * atomic commit (DONE marker written last; partial checkpoints ignored);
   * ``latest_step`` scans for the newest committed step -> crash-restart;
-  * arrays are saved whole; ``restore_checkpoint(device=...)`` places each
-    leaf on the restoring device (mesh placement is not ported yet);
+  * arrays are saved whole: a tree of DTensors (a sharded train state) is
+    gathered leaf by leaf (``full_tensor``, on every rank) and rank 0
+    writes it, so the files are byte for byte an unsharded save's;
+    ``restore_checkpoint(device=...)`` places each leaf on the restoring
+    device, and ``restore_checkpoint(shardings=...)`` re-places it on a
+    mesh — any mesh, not the one it was saved from (elastic restore);
   * delta chains: a delta step's base may itself be a delta step — restore
     folds the chain recursively.
 """
@@ -62,6 +66,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.core.keyformat import KeySet
 from repro_torch.core.metadata import DSMeta
@@ -114,6 +120,8 @@ def _leaves(node, path: tuple = ()):
 def _leaf_array(leaf) -> np.ndarray:
     """A leaf as the array the reference would save for it: a tensor comes
     to the host; bfloat16 (which numpy lacks) as its raw ``V2`` words."""
+    if isinstance(leaf, DTensor):  # every rank gathers; a collective
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -174,6 +182,11 @@ def save_checkpoint(ckpt_dir: str | os.PathLike, step: int, tree,
     from repro_torch.core.metadata import meta_from_keys
 
     device = resolve_device(device)  # before any file is written
+    if any(isinstance(leaf, DTensor) for _, leaf in _leaves(tree)) and dist.get_rank() != 0:
+        for _ in _iter_flat(tree):  # the gathers rank 0 writes from
+            pass
+        dist.barrier()
+        return Path(ckpt_dir) / f"step_{step:08d}"
     root = Path(ckpt_dir)
     final = root / f"step_{step:08d}"
     tmp = root / f".tmp_step_{step:08d}"
@@ -205,6 +218,8 @@ def save_checkpoint(ckpt_dir: str | os.PathLike, step: int, tree,
     if final.exists():
         shutil.rmtree(final)
     tmp.rename(final)  # atomic commit
+    if any(isinstance(leaf, DTensor) for _, leaf in _leaves(tree)):
+        dist.barrier()  # the other ranks return once the step is committed
     return final
 
 
@@ -344,6 +359,8 @@ def save_checkpoint_delta(ckpt_dir: str | os.PathLike, step: int, tree,
     if final.exists():
         shutil.rmtree(final)
     tmp.rename(final)  # atomic commit
+    if any(isinstance(leaf, DTensor) for _, leaf in _leaves(tree)):
+        dist.barrier()  # the other ranks return once the step is committed
     return final
 
 
@@ -491,14 +508,20 @@ def _place(arr: np.ndarray, device) -> torch.Tensor:
 
 def restore_checkpoint(ckpt_dir: str | os.PathLike, step: int, like_tree,
                        device=None, backend: str = "cuda",
-                       index_device=None) -> tuple[dict, dict]:
-    """Restore a tree shaped like ``like_tree``.
+                       index_device=None, shardings=None) -> tuple[dict, dict]:
+    """Restore a tree shaped like ``like_tree``; elastic re-placement under
+    ``shardings`` if given.
 
     Every leaf is fetched through the reconstructed manifest index (point
     lookup by hashed path) — the restore path exercises the paper's index,
     not a linear scan.  ``backend`` and ``index_device`` (CUDA unless
     named) select where the manifest index is reconstructed.  Leaves come
     back as numpy arrays, or as tensors on ``device`` when one is named.
+    ``shardings`` (a tree of ``distributed.sharding.NamedSharding`` like
+    ``like_tree``, e.g. ``launch.shardings.params_shardings``) makes each
+    leaf a DTensor on its mesh (on the mesh's device type unless
+    ``device`` names one): every rank rebuilds the index and reads the
+    leaf, and keeps its own block, with no communication.
     Delta steps replay their change log onto the base step transparently.
     Returns ``(tree, stats)``.
     """
@@ -507,10 +530,17 @@ def restore_checkpoint(ckpt_dir: str | os.PathLike, step: int, like_tree,
         raise FileNotFoundError(f"no committed checkpoint at {step_dir}")
     idx = CheckpointIndex(step_dir, backend=backend, device=index_device)
 
+    sh = None if shardings is None else [s for _, s in _leaves(shardings)]
+    if sh is not None and device is None:
+        device = resolve_device(sh[0].mesh.device_type)
     out = []
-    for name in _names(like_tree):
+    for i, name in enumerate(_names(like_tree)):
         arr = np.load(step_dir / idx.lookup(name))
-        out.append(arr if device is None else _place(arr, device))
+        leaf = arr if device is None else _place(arr, device)
+        if sh is not None:
+            leaf = distribute_tensor(leaf, sh[i].mesh, sh[i].placements(leaf.dim()),
+                                     src_data_rank=None)
+        out.append(leaf)
     tree = _unflatten(like_tree, iter(out))
     stats = {
         "n_leaves": len(out),

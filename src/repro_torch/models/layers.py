@@ -22,6 +22,9 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.distributed.tensor import DTensor, Partial
+
+from repro_torch.distributed.ctx import axis_size, constrain, current
 
 __all__ = [
     "rms_norm",
@@ -118,6 +121,8 @@ def flash_attention(
     them without ``causal``).  A length that the chunk does not divide
     (small tests, a prefix of odd length) is one block.
     """
+    if isinstance(q, DTensor):
+        return _mesh_flash_attention(q, k, v, causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk)
     B, Hq, Tq, dh = q.shape
     G, Tk = k.shape[1], k.shape[2]
     r = Hq // G
@@ -161,6 +166,58 @@ def flash_attention(
     return out.reshape(B, Hq, Tq, dh).to(q.dtype)
 
 
+def _mesh_flash_attention(q, k, v, **kw):
+    """:func:`flash_attention` of DTensors inside ``use_mesh``: each rank
+    runs the blocks on its own batch rows and heads, as plain tensors.
+
+    The batch goes over the data axes.  Over the model axis the query
+    heads are split in contiguous chunks of ``c = Hq / ms`` when a chunk
+    holds whole groups or lies inside one (``c % r == 0`` or
+    ``r % c == 0``): the KV heads go with them when ``G`` divides the
+    axis, else they are replicated and each rank reads its chunk's groups
+    (the JAX package's three cases: shard G; shard the repeat dim r and
+    replicate the small KV; shard G unevenly — here the uneven case is
+    evened out, ``c`` heads a rank).  Otherwise the heads are replicated
+    over the model axis, and so is the attention math.  The blocks run on
+    local tensors, so no op inside them has to follow DTensor's view rules
+    (which cannot flatten a sharded head dim into a batch dim)."""
+    ctx = current()
+    if ctx is None:
+        raise RuntimeError("attention over DTensors runs inside distributed.ctx.use_mesh")
+    mesh, _, model_axis = ctx
+    B, Hq, Tq, dh = q.shape
+    G = k.shape[1]
+    r = Hq // G
+    ms = axis_size("model")
+    c = Hq // ms if Hq % ms == 0 else 0
+    heads = ms > 1 and c > 0 and (r % c == 0 or c % r == 0)
+    kv_split = heads and G % ms == 0
+    q = constrain(q, "data", "model" if heads else None, None, None)
+    k = constrain(k, "data", "model" if kv_split else None, None, None)
+    v = constrain(v, "data", "model" if kv_split else None, None, None)
+    if heads and not kv_split:
+        # a rank reads its chunk's groups: their KV gradient is a partial sum
+        grad_pl = [Partial() if name == model_axis else pl
+                   for name, pl in zip(mesh.mesh_dim_names, k.placements)]
+        j = mesh.get_local_rank(model_axis)
+        g0, g1 = (j * c) // r, ((j + 1) * c - 1) // r + 1
+        kl = k.to_local(grad_placements=grad_pl)[:, g0:g1]
+        vl = v.to_local(grad_placements=grad_pl)[:, g0:g1]
+    else:
+        kl, vl = k.to_local(), v.to_local()
+    out = flash_attention(q.to_local(), kl, vl, **kw)
+    return DTensor.from_local(out, mesh, q.placements, run_check=False, shape=q.shape,
+                              stride=_contiguous_stride(q.shape))
+
+
+def _contiguous_stride(shape) -> tuple:
+    stride, acc = [], 1
+    for n in reversed(tuple(shape)):
+        stride.append(acc)
+        acc *= n
+    return tuple(reversed(stride))
+
+
 def decode_attention(
     q: torch.Tensor,
     k_cache: torch.Tensor,
@@ -187,8 +244,8 @@ def decode_attention(
         S += pad
     ns, sc = S // kv_chunk, kv_chunk
     qg = q.reshape(B, G, r, dh)
-    k5 = k_cache.reshape(B, G, ns, sc, dh)
-    v5 = v_cache.reshape(B, G, ns, sc, dh)
+    k5 = constrain(k_cache.reshape(B, G, ns, sc, dh), "data", None, "model", None, None)
+    v5 = constrain(v_cache.reshape(B, G, ns, sc, dh), "data", None, "model", None, None)
     scale = 1.0 / math.sqrt(dh)
     length = torch.as_tensor(length, device=q.device)
     lb = length.expand(B) if length.dim() == 0 else length  # (B,)
@@ -214,6 +271,18 @@ def decode_attention(
 # ---------------------------------------------------------------------------
 # losses
 # ---------------------------------------------------------------------------
+
+
+def _gold(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``logits[..., labels]``, the gold logit of each position.  A
+    DTensor's vocab-sharded gather leaves a masked partial result that its
+    reduction cannot take (beside a (B, T) operand); on a DTensor the gold
+    logit is the sum over the vocab of the logits where the label hits,
+    the same value, since every other term is zero."""
+    if isinstance(logits, DTensor):
+        hit = labels[..., None] == torch.arange(logits.shape[-1], device=labels.device)
+        return torch.where(hit, logits, 0.0).sum(dim=-1)
+    return torch.gather(logits, -1, labels[..., None])[..., 0]
 
 
 def chunked_softmax_xent(
@@ -246,7 +315,7 @@ def chunked_softmax_xent(
         sl = slice(i * chunk, (i + 1) * chunk)
         logits = h[:, sl].float() @ head  # (B, chunk, V) f32
         lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, labels[:, sl, None])[..., 0]
+        gold = _gold(logits, labels[:, sl])
         m_c = mask[:, sl]
         nll = (lse - gold) * m_c
         if z_loss:

@@ -49,16 +49,19 @@ import math
 from dataclasses import dataclass
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
     create_selective_checkpoint_contexts,
 )
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core.u32 import resolve_device
+from repro_torch.distributed.ctx import axis_size, constrain, current
 
 from .layers import (
+    _contiguous_stride,
     apply_rope,
     chunked_softmax_xent,
     decode_attention,
@@ -70,7 +73,7 @@ from .moe import moe_ffn
 from .ssm import mamba_mix
 from .xlstm import mlstm_mix, slstm_mix
 
-__all__ = ["LM"]
+__all__ = ["LM", "input_specs"]
 
 _F32 = torch.float32
 #: the MoE aux metrics, summed over the MoE sublayers and averaged over
@@ -91,6 +94,59 @@ def remat_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
 
 def _remat_contexts():
     return create_selective_checkpoint_contexts(remat_policy)
+
+
+def _gather_data_axes(w: torch.Tensor) -> torch.Tensor:
+    """On a mesh, a (compute-dtype) weight made whole over the data axes
+    and left split over the model axis: FSDP's gather before use.  Left
+    to itself, DTensor's per-op choice keeps the weight's data split and
+    splits the contraction of the batch's tokens over it instead, so
+    every rank computes partial sums over all the microbatch's tokens and
+    keeps them; the gathered weight is not kept (remat recomputes it in
+    the backward, where its gradient reduce-scatters back).  A no-op off
+    a mesh."""
+    ctx = current()
+    if ctx is None or not isinstance(w, DTensor):
+        return w
+    mesh, data, _ = ctx
+    pl = [Replicate() if name in data else p for name, p in zip(mesh.mesh_dim_names, w.placements)]
+    return w.redistribute(mesh, pl)
+
+
+def _split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """A (B, T, heads*hd) projection on a mesh: the batch over the data
+    axes and the heads over the model axis where it divides them, else
+    whole, so that splitting off the head dim is an even view; a no-op
+    off a mesh."""
+    ms = axis_size("model")
+    return constrain(x, "data", None, "model" if ms > 1 and n_heads % ms == 0 else None)
+
+
+def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]``.  On DTensors each rank gathers from its own block of
+    the table with its own indices: the table's rows are made whole (a
+    vocab-split table is gathered first) and the indices whole wherever the
+    table is split; the rows come out split as the indices and the
+    table's columns are, and the table's gradient is a partial sum over the
+    mesh dims that split the indices."""
+    if not isinstance(table, DTensor):
+        return table[idx]
+    mesh = table.device_mesh
+    rep = Replicate()
+    tpl = [pl if isinstance(pl, Shard) and pl.dim > 0 else rep for pl in table.placements]
+    table = table.redistribute(mesh, tpl)
+    if not isinstance(idx, DTensor):
+        idx = DTensor.from_local(idx, mesh, [rep] * mesh.ndim, run_check=False)
+    ipl = [rep if isinstance(tp, Shard) or not isinstance(ip, Shard) else ip
+           for tp, ip in zip(tpl, idx.placements)]
+    idx = idx.redistribute(mesh, ipl)
+    out_pl = [Shard(idx.ndim + tp.dim - 1) if isinstance(tp, Shard) else ip
+              for tp, ip in zip(tpl, ipl)]
+    grad_pl = [Partial() if isinstance(ip, Shard) else tp for tp, ip in zip(tpl, ipl)]
+    out = table.to_local(grad_placements=grad_pl)[idx.to_local()]
+    shape = tuple(idx.shape) + tuple(table.shape[1:])
+    return DTensor.from_local(out, mesh, out_pl, run_check=False, shape=shape,
+                              stride=_contiguous_stride(shape))
 
 
 # ---------------------------------------------------------------------------
@@ -235,6 +291,15 @@ class LM:
             params["lm_head"] = one.lin(cfg.d_model, (cfg.d_model, cfg.vocab_size))[0].float()
         return params
 
+    def param_struct(self, dtype: torch.dtype = _F32) -> dict:
+        """The parameter tree as ``meta`` tensors (shapes and dtypes, no
+        storage): f32 master leaves by default."""
+        return LM(self.cfg, self.compute_dtype, device="meta")._make(torch.Generator(), dtype)
+
+    def cache_struct(self, batch_size: int, max_seq: int) -> dict:
+        """:meth:`init_cache`'s tree as ``meta`` tensors."""
+        return LM(self.cfg, self.compute_dtype, device="meta").init_cache(batch_size, max_seq)
+
     def prepare(self, raw: dict) -> dict:
         """The one cast at load: a parameter tree in the reference's layout
         (tensors of any dtype, matrices stacked over superblocks) -> the
@@ -264,6 +329,8 @@ class LM:
         return params["lm_head"]
 
     def _input(self, x, dtype=None) -> torch.Tensor:
+        if isinstance(x, DTensor):  # already on the mesh's devices
+            return x if dtype is None else x.to(dtype)
         return torch.as_tensor(x, device=self.device, dtype=dtype)
 
     def _cast(self, t: torch.Tensor) -> torch.Tensor:
@@ -276,7 +343,7 @@ class LM:
             # gather, then cast: the rows the reference gathers from its
             # cast table; a repeated token's row gradients add up in f32
             tokens = self._input(batch["tokens"], torch.int64)
-            return params["embed"][tokens].to(self.compute_dtype)
+            return gather_rows(params["embed"], tokens).to(self.compute_dtype)
         return self._input(batch["frames"]).to(self.compute_dtype)  # audio stub frontend
 
     def _attn(self, p, h, mode, pos, kv_cache):
@@ -284,9 +351,9 @@ class LM:
         B, T, _ = h.shape
         H, G, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
         x = rms_norm(h, p["ln"], cfg.norm_eps)
-        q = (x @ p["wq"]).reshape(B, T, H, hd).transpose(1, 2)
-        k = (x @ p["wk"]).reshape(B, T, G, hd).transpose(1, 2)
-        v = (x @ p["wv"]).reshape(B, T, G, hd).transpose(1, 2)
+        q = _split_heads(x @ p["wq"], H).reshape(B, T, H, hd).transpose(1, 2)
+        k = _split_heads(x @ p["wk"], G).reshape(B, T, G, hd).transpose(1, 2)
+        v = _split_heads(x @ p["wv"], G).reshape(B, T, G, hd).transpose(1, 2)
         if cfg.qk_norm:
             q = rms_norm(q, p["q_norm"], cfg.norm_eps)
             k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -307,7 +374,9 @@ class LM:
             kv_cache["v"][:, :, pos:pos + T] = v
             o = decode_attention(q, kv_cache["k"], kv_cache["v"], pos + 1,
                                  kv_chunk=cfg.kv_chunk)
-        o = o.transpose(1, 2).reshape(B, T, H * hd)
+        # split as the projections are, so that the backward's view back to
+        # heads is an even one too
+        o = _split_heads(o.transpose(1, 2).reshape(B, T, H * hd), H)
         return h + (o @ p["wo"]).to(h.dtype)
 
     def _xattn(self, p, h, mode, img_embeds, cache):
@@ -315,19 +384,19 @@ class LM:
         B, T, _ = h.shape
         H, G, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
         x = rms_norm(h, p["ln"], cfg.norm_eps)
-        q = (x @ p["wq"]).reshape(B, T, H, hd).transpose(1, 2)
+        q = _split_heads(x @ p["wq"], H).reshape(B, T, H, hd).transpose(1, 2)
         if mode == "decode" and cache is not None:
             k, v = cache["k_img"], cache["v_img"]
         else:
             y = rms_norm(self._input(img_embeds).to(h.dtype), p["ln_kv"], cfg.norm_eps)
             n_img = y.shape[1]
-            k = (y @ p["wk"]).reshape(B, n_img, G, hd).transpose(1, 2)
-            v = (y @ p["wv"]).reshape(B, n_img, G, hd).transpose(1, 2)
+            k = _split_heads(y @ p["wk"], G).reshape(B, n_img, G, hd).transpose(1, 2)
+            v = _split_heads(y @ p["wv"], G).reshape(B, n_img, G, hd).transpose(1, 2)
             if cache is not None:
                 cache["k_img"].copy_(k)
                 cache["v_img"].copy_(v)
         o = flash_attention(q, k, v, causal=False, q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
-        o = o.transpose(1, 2).reshape(B, T, H * hd)
+        o = _split_heads(o.transpose(1, 2).reshape(B, T, H * hd), H)
         return h + torch.tanh(p["gate"]).to(h.dtype) * (o @ p["wo"]).to(h.dtype)
 
     def _dense_ffn(self, p, h):
@@ -388,8 +457,12 @@ class LM:
                   "slstm": (slstm_mix, {"n_heads": cfg.xlstm_heads})}
         aux = [torch.zeros((), dtype=_F32, device=h.device) for _ in _AUX]
         for i, (mixer, ffn) in enumerate(cfg.pattern):
-            pm = {name: self._cast(t) for name, t in p_sb[str(i)].items()}
+            pm = {name: _gather_data_axes(self._cast(t)) for name, t in p_sb[str(i)].items()}
             csl = c_sb.get(str(i))
+            # on a mesh the residual stream is split by batch and whole in d
+            # before each sublayer (Megatron's layout): every projection
+            # then has a placement that moves nothing
+            h = constrain(h, "data", None, None)
             if mixer == "attn":
                 h = self._attn(pm, h, mode, pos, csl)
             elif mixer == "xattn":
@@ -402,6 +475,7 @@ class LM:
                 if csl is not None:  # no cache in train: the state is dropped
                     for name, t in state.items():
                         csl[name].copy_(t)
+            h = constrain(h, "data", None, None)
             if ffn == "dense":
                 h = self._dense_ffn(pm, h)
             elif ffn == "moe":
@@ -422,8 +496,13 @@ class LM:
         h = rms_norm(h, params["final_norm"], cfg.norm_eps)
         raw = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
         mask = batch.get("mask")
+        # on a mesh: the batch over the data axes and the head whole in d,
+        # split over the vocab, so every chunk's logits are split by batch
+        # and vocab (one gather of the head a step, not one a chunk)
+        h = constrain(h, "data", None, None)
+        head = constrain(raw.to(self.compute_dtype), None, "model")
         xent = chunked_softmax_xent(
-            h, raw.to(self.compute_dtype), self._input(batch["labels"], torch.int64),
+            h, head, self._input(batch["labels"], torch.int64),
             mask=None if mask is None else self._input(mask), chunk=cfg.loss_chunk)
         loss = xent
         if cfg.n_experts:
@@ -443,7 +522,7 @@ class LM:
         """batch: {token: (B,) | frame: (B, d), pos: int} -> (cache, logits)."""
         pos = int(batch["pos"])
         if self.cfg.embed_input:
-            h = params["embed"][self._input(batch["token"], torch.int64)][:, None]
+            h = gather_rows(params["embed"], self._input(batch["token"], torch.int64))[:, None]
         else:
             h = self._input(batch["frame"])[:, None].to(self.compute_dtype)
         h, _ = self._forward(params, h, mode="decode", pos=pos, cache=cache,
@@ -490,3 +569,50 @@ class LM:
                     "m": zeros(Hx, dh, dtype=_F32),
                 }
         return out
+
+
+# ---------------------------------------------------------------------------
+# dry-run input specs
+# ---------------------------------------------------------------------------
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> dict:
+    """Stand-ins for every model input of a shape cell: ``meta`` tensors,
+    with the keys, shapes and dtypes of the real batch and no storage
+    (the modality frontends of [audio]/[vlm] archs are stubs: precomputed
+    frame/patch embeddings appear here as inputs)."""
+    B, S = shape.global_batch, shape.seq_len
+    bf16, i32 = torch.bfloat16, torch.int32
+    d = cfg.d_model
+
+    def sds(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    if shape.kind == "train":
+        batch: dict = {}
+        if cfg.embed_input:
+            batch["tokens"] = sds((B, S), i32)
+        else:
+            batch["frames"] = sds((B, S, d), bf16)
+        batch["labels"] = sds((B, S), i32)
+        if cfg.n_img_tokens:
+            batch["img_embeds"] = sds((B, cfg.n_img_tokens, d), bf16)
+        return batch
+    if shape.kind == "prefill":
+        batch = {}
+        if cfg.embed_input:
+            batch["tokens"] = sds((B, S), i32)
+        else:
+            batch["frames"] = sds((B, S, d), bf16)
+        if cfg.n_img_tokens:
+            batch["img_embeds"] = sds((B, cfg.n_img_tokens, d), bf16)
+        return batch
+    # decode
+    batch = {"pos": sds((), i32)}
+    if cfg.embed_input:
+        batch["token"] = sds((B,), i32)
+    else:
+        batch["frame"] = sds((B, d), bf16)
+    if cfg.n_img_tokens:
+        batch["img_embeds"] = sds((B, cfg.n_img_tokens, d), bf16)
+    return batch

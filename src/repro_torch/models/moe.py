@@ -13,6 +13,13 @@ Two dispatch modes give identical positions:
   * ``sort``   — compressed-key sort of (expert, position) entries, then
     capacity-bucket scatter;
   * ``einsum`` — GShard-style cumsum-over-one-hot positions (no sort).
+
+On a mesh (DTensor activations) the layer runs on whole tensors on every
+rank: the dispatch is global over the ``B*T`` tokens (the capacity
+counts them all) and its integer steps (sort, searchsorted, masked
+scatter) have no DTensor sharding rules, so the tokens, the router and
+the expert weights are gathered, replicated, and the output goes back to
+the tokens' placements.  Expert parallelism is not ported yet.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.core.u32 import MASK32
 
@@ -86,6 +94,19 @@ def moe_ffn(
     shared_expert: bool = False,
 ) -> tuple[torch.Tensor, dict]:
     """x: (B, T, d) -> (B, T, d), plus aux metrics/losses."""
+    if isinstance(x, DTensor):
+        mesh = x.device_mesh
+        rep = [Replicate()] * mesh.ndim
+        used = ("router", "moe_w1", "moe_w3", "moe_w2") + (("w1", "w3", "w2") if shared_expert else ())
+        whole = {k: p[k].redistribute(mesh, rep).to_local() for k in used}
+        out, aux = moe_ffn(whole, x.redistribute(mesh, rep).to_local(), n_experts=n_experts,
+                           top_k=top_k, capacity_factor=capacity_factor,
+                           dispatch_mode=dispatch_mode, shared_expert=shared_expert)
+        # the aux terms go back on the mesh too, so that their gradients
+        # reach the whole-tensor region through DTensor's own backward
+        on_mesh = lambda t: DTensor.from_local(t, mesh, rep, run_check=False)
+        aux = {k: on_mesh(v) for k, v in aux.items()}
+        return on_mesh(out).redistribute(mesh, x.placements), aux
     B, T, d = x.shape
     n = B * T
     xf = x.reshape(n, d)

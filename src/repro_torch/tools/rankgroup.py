@@ -24,6 +24,16 @@ returns the ranks' return values in rank order.
   ranks and raises :class:`RankError` with it.  A rank that dies without
   one (killed, out of memory) raises with its exit code.
 
+``run_threads(fn, p, *args)`` runs the ranks as ``p`` threads of this
+process instead, joined into one group of PyTorch's threaded test backend
+(``torch.testing._internal.distributed.multi_threaded_pg``): its
+collectives are tensor ops on the ranks' own devices, with no transport.
+It is for what gloo cannot carry: gloo runs ``torch.distributed``'s
+collectives on CUDA tensors, but a functional collective's wait (the
+form DTensor issues) faulted on them with PyTorch 2.11.  The ranks share
+one interpreter, so their host work is serial, and one CUDA allocator, so
+the card's peak is theirs together.
+
 Usage::
 
     from repro_torch.tools.rankgroup import run_group
@@ -47,7 +57,7 @@ import traceback
 from datetime import timedelta
 from pathlib import Path
 
-__all__ = ["RankError", "run_group"]
+__all__ = ["RankError", "run_group", "run_threads"]
 
 
 class RankError(RuntimeError):
@@ -162,3 +172,62 @@ def run_group(fn, p: int, *args, timeout: float = 60.0, deadline: float = 600.0)
     finally:
         _stop(procs)
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_threads(fn, p: int, *args, timeout: float = 600.0) -> list:
+    """Run ``fn(rank, p, *args)`` on ``p`` threads joined into one group of
+    the threaded backend; their return values in rank order.
+
+    A rank's CUDA device is ``rank % device_count``.  ``timeout`` bounds
+    the whole group; a rank that raises wakes the others (their
+    collectives raise too) and :class:`RankError` carries its traceback.
+    """
+    import threading
+
+    import torch
+    import torch.distributed as dist
+    from torch.testing._internal.distributed import multi_threaded_pg as mtpg
+
+    if p < 1:
+        raise ValueError(f"a group needs at least one rank, got {p}")
+    if dist.is_initialized():
+        raise RankError("run_threads needs a process without a process group")
+    results, errors = [None] * p, [None] * p
+    store = dist.HashStore()
+
+    def rank_main(rank: int) -> None:
+        try:
+            if torch.cuda.is_available():
+                torch.cuda.set_device(rank % torch.cuda.device_count())
+            dist.init_process_group("threaded", rank=rank, world_size=p, store=store)
+            try:
+                results[rank] = fn(rank, p, *args)
+            finally:
+                # PyTorch 2.11's destroy reads a field its own threaded world
+                # lacks; there, uninstalling the world below drops the groups
+                if hasattr(dist.distributed_c10d._world, "comms"):
+                    dist.destroy_process_group()
+        except BaseException as ex:
+            errors[rank] = (time.time(), traceback.format_exc())
+            mtpg.ProcessLocalGroup.exception_handle(ex)  # wake the waiting ranks
+
+    torch._C._distributed_c10d._set_thread_isolation_mode(True)
+    mtpg._install_threaded_pg()
+    try:
+        threads = [threading.Thread(target=rank_main, args=(r,), name=f"rank{r}", daemon=True)
+                   for r in range(p)]
+        for t in threads:
+            t.start()
+        end = time.monotonic() + float(timeout)
+        for t in threads:
+            t.join(max(end - time.monotonic(), 0.0))
+        if any(t.is_alive() for t in threads):
+            raise RankError(f"the {p} threaded ranks passed their {timeout:.0f} s timeout")
+        failed = [(e[0], r, e[1]) for r, e in enumerate(errors) if e is not None]
+        if failed:
+            _, r, detail = min(failed)
+            raise RankError(f"rank {r} of {p} failed:\n{detail}")
+        return results
+    finally:
+        mtpg._uninstall_threaded_pg()
+        torch._C._distributed_c10d._set_thread_isolation_mode(False)

@@ -14,6 +14,7 @@ import math
 from dataclasses import dataclass
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 __all__ = ["OptConfig", "adamw_init", "adamw_update", "lr_at", "global_norm",
            "tree_leaves", "tree_map", "tree_pick"]
@@ -67,13 +68,23 @@ def lr_at(cfg: OptConfig, step) -> torch.Tensor:
 
 
 def adamw_init(params) -> dict:
-    dev = tree_leaves(params)[0].device
-    zeros = lambda p: tree_map(lambda x: torch.zeros(x.shape, dtype=_F32, device=x.device), p)
-    return {"m": zeros(params), "v": zeros(params),
-            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    """Zero moments on the parameters' devices (on a mesh, with the
+    parameters' placements: each rank its block) and a zero ``step``
+    (replicated on the mesh)."""
+    first = tree_leaves(params)[0]
+    zeros = lambda p: tree_map(lambda x: torch.zeros_like(x, dtype=_F32), p)
+    if isinstance(first, DTensor):
+        mesh = first.device_mesh
+        step = DTensor.from_local(torch.zeros((), dtype=torch.int32, device=first.device),
+                                  mesh, [Replicate()] * mesh.ndim, run_check=False)
+    else:
+        step = torch.zeros((), dtype=torch.int32, device=first.device)
+    return {"m": zeros(params), "v": zeros(params), "step": step}
 
 
 def global_norm(tree) -> torch.Tensor:
+    """The f32 2-norm over every leaf; over DTensor leaves, of the whole
+    tensors (the sums of squares reduce over the mesh)."""
     s = 0
     for x in tree_leaves(tree):
         s = s + torch.sum(torch.square(x.to(_F32)))
@@ -92,7 +103,10 @@ def adamw_update(cfg: OptConfig, params, grads, opt):
     The parameters and the moments are updated in place and returned
     (with a new ``step``), as the reference's launcher
     (``launch/train.py``) donates them to its jitted step: a full-width
-    model then holds one copy of its state.
+    model then holds one copy of its state.  DTensor leaves (gradients on
+    their parameters' placements) are updated block by block and keep
+    their placements; call it under ``implicit_replication`` (the train
+    step does), where the scalars meet them.
     """
     step = opt["step"] + 1
     lr = lr_at(cfg, step)

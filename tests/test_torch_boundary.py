@@ -141,7 +141,11 @@ print(json.dumps([names, bad]))
                  "repro_torch.serve.engine", "repro_torch.launch", "repro_torch.launch.serve",
                  "repro_torch.launch.train", "repro_torch.train", "repro_torch.train.optim",
                  "repro_torch.train.trainstep", "repro_torch.train.compression",
-                 "repro_torch.data.pipeline", "repro_torch.data.synthetic"):
+                 "repro_torch.data.pipeline", "repro_torch.data.synthetic",
+                 "repro_torch.distributed", "repro_torch.distributed.sharding",
+                 "repro_torch.distributed.ctx", "repro_torch.launch.mesh",
+                 "repro_torch.launch.shardings", "repro_torch.launch.opcount",
+                 "repro_torch.launch.dryrun", "repro_torch.launch.roofline"):
         assert name in names
     assert bad == []
 
@@ -190,17 +194,18 @@ def test_distributed_modules_name_neither_jax_nor_reference_anywhere():
 
 def test_lm_modules_name_neither_jax_nor_reference_anywhere():
     """The configs, the models, the engine, the training path (optimizer,
-    train step, compression, token pipeline) and the launchers name
-    neither JAX's module nor the reference package, not even in a
-    docstring."""
+    train step, compression, token pipeline), the mesh layer and the
+    launchers name neither JAX's module nor the reference package, not
+    even in a docstring."""
     mention = re.compile(r"\b(?:import|from)\s+(?:jax|jaxlib|repro)\b(?!_)"
                          r"|\bjax\.|(?<![\w.])repro\.")
     files = (sorted((PACKAGE / "configs").glob("*.py")) + sorted((PACKAGE / "models").glob("*.py"))
              + sorted((PACKAGE / "launch").glob("*.py")) + sorted((PACKAGE / "train").glob("*.py"))
              + sorted((PACKAGE / "data").glob("*.py"))
+             + sorted((PACKAGE / "distributed").glob("*.py"))
              + [PACKAGE / "serve" / "engine.py", PACKAGE / "convert.py",
                 PACKAGE / "core" / "sortkeys.py", PACKAGE / "ckpt" / "checkpoint.py"])
-    assert len(files) >= 28
+    assert len(files) >= 36
     for path in files:
         assert not mention.search(path.read_text()), path.name
 

@@ -1348,3 +1348,95 @@ def test_remat_on_the_card_equals_no_remat_and_holds_less(dev, name):
     for i, (a, b) in enumerate(zip(g_on, g_off)):
         _lm_close(a, b, REMAT_GRAD_TOL, f"{name} grad {i}")
     assert peak_on < peak_off, (peak_on, peak_off)
+
+
+def _flat_leaves(tree, prefix=()):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _flat_leaves(tree[k], prefix + (k,))]
+    return [(prefix, tree)]
+
+
+def test_sharded_step_on_the_card_matches_one_rank(dev):
+    """The reduced llama3-8b's step at accum 1 and 2 (each from the same
+    start, f32 compute) on four ranks sharing the card, threads of the
+    threaded group on a (2, 2) ("data", "model") mesh: the loss within
+    1e-5 relative and the parameters within 2e-5 of one rank's step (the
+    bounds ``tests/test_torch_mesh.py`` holds the CPU's ranks to)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.distributed.ctx import use_mesh
+    from repro_torch.launch.shardings import batch_shardings, params_shardings, place
+    from repro_torch.models.lm import LM
+    from repro_torch.tools.rankgroup import run_threads
+    from repro_torch.train.optim import OptConfig, adamw_init, tree_map
+    from repro_torch.train.trainstep import make_train_step
+
+    model = LM(ARCHS["llama3-8b"].reduced(), compute_dtype=torch.float32, device=dev)
+    host = tree_map(lambda t: t.cpu(), model.init_master(torch.Generator(device=dev).manual_seed(0)))
+    rng = np.random.default_rng(9)
+    batch = {k: torch.from_numpy(rng.integers(0, 512, (4, 32))).to(dev) for k in ("tokens", "labels")}
+    cfg = OptConfig(warmup_steps=10, decay_steps=50)
+    want = {}
+    for accum in (1, 2):
+        params = tree_map(lambda t: t.to(dev), host)
+        p, _, m = make_train_step(model, cfg, accum=accum)(params, adamw_init(params), batch)
+        want[accum] = (float(m["loss"]), [t.cpu() for _, t in _flat_leaves(p)])
+
+    def rank_fn(rank, p):
+        mesh = init_device_mesh("cuda", (2, 2), mesh_dim_names=("data", "model"))
+        p_sh = params_shardings(mesh, host)
+        out = {}
+        for accum in (1, 2):
+            params = place(tree_map(lambda t: t.to(dev), host), p_sh)
+            step = make_train_step(model, cfg, accum=accum, param_shardings=p_sh)
+            with use_mesh(mesh):
+                params, _, m = step(params, adamw_init(params), place(batch, batch_shardings(mesh, batch)))
+            out[accum] = (float(m["loss"]), [t.full_tensor().cpu() for _, t in _flat_leaves(params)])
+        return out
+
+    got = run_threads(rank_fn, 4)
+    for accum in (1, 2):
+        for r in range(4):
+            loss, leaves = got[r][accum]
+            assert abs(loss - want[accum][0]) <= 1e-5 * abs(want[accum][0]), (r, accum)
+            for a, b in zip(leaves, want[accum][1]):
+                torch.testing.assert_close(a, b, atol=2e-5, rtol=0)
+
+
+def test_elastic_restore_on_the_card(dev, tmp_path):
+    """A checkpoint saved from one rank restores onto a (2, 2) mesh of four
+    ranks sharing the card, each rebuilding the manifest index on
+    ``"cuda"``: every leaf equal to the bit, on the placements the rules
+    give, and the probe kernel's leaf stage launched."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.ckpt import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import ARCHS
+    from repro_torch.distributed.sharding import param_spec, to_placements
+    from repro_torch.launch.shardings import guard_spec, params_shardings
+    from repro_torch.models.lm import LM
+    from repro_torch.tools.rankgroup import run_threads
+
+    model = LM(ARCHS["llama3-8b"].reduced(), device=dev)
+    params = model.init_master(torch.Generator(device=dev).manual_seed(1))
+    save_checkpoint(tmp_path, 3, params, device=dev)
+    cudalib.reset_launches()
+    # the threads rebuild their indexes one at a time: a lookup graph's
+    # capture in one cannot overlap another's device-wide synchronize
+    lock = threading.Lock()
+
+    def rank_fn(rank, p):
+        mesh = init_device_mesh("cuda", (2, 2), mesh_dim_names=("data", "model"))
+        with lock:
+            got, stats = restore_checkpoint(tmp_path, 3, params, backend="cuda",
+                                            shardings=params_shardings(mesh, params))
+        assert stats["index_backend"] == "cuda"
+        for (path, a), (_, b) in zip(_flat_leaves(got), _flat_leaves(params)):
+            assert torch.equal(a.full_tensor(), b), path
+            spec = guard_spec(mesh, param_spec(path, b), tuple(b.shape))
+            assert tuple(a.placements) == to_placements(mesh, spec, b.dim()), path
+        return True
+
+    assert run_threads(rank_fn, 4) == [True] * 4
+    assert cudalib.LAUNCHES["probe"] > 0
