@@ -293,7 +293,7 @@ from repro_torch.core.keyformat import KeySet  # noqa: E402
 from repro_torch.core.metadata import meta_from_keys  # noqa: E402
 from repro_torch.core.pipeline import ReconstructionPipeline, fold_keyset  # noqa: E402
 from repro_torch.core.snapshot import SnapshotCell  # noqa: E402
-from repro_torch.core.u32 import to_carrier, to_u32  # noqa: E402
+from repro_torch.core.u32 import sync_stream, to_carrier, to_u32  # noqa: E402
 from repro_torch.data.synthetic import zipf_keys  # noqa: E402
 from repro_torch.kernels import cudalib  # noqa: E402
 from repro_torch.kernels.bitonic import DEFAULT_BLOCK, block_sort, block_sort_plain  # noqa: E402
@@ -3416,8 +3416,6 @@ def distributed_phase(args, dev, res, keyset, data: dict, launches: dict) -> Non
 MESH = {"arch": "llama3-8b", "layers": 4, "batch": 4, "seq": 512, "lr": 1e-5,
         "shape": (2, 2), "axes": ("data", "model")}
 MESH_RANKS = 4
-#: the threaded ranks rebuild their manifest indexes one at a time
-MESH_INDEX_LOCK = threading.Lock()
 
 
 def tree_digests(tree) -> dict:
@@ -3481,15 +3479,15 @@ def mesh_rank(rank: int, p: int, host0: dict, batch_np: dict, ckpt_dir: str) -> 
             out["resident_state_gib"] = resident / 2**30
             dist.barrier()
             if rank == 0:
-                torch.cuda.synchronize()
+                sync_stream(dev)
                 torch.cuda.reset_peak_memory_stats(dev)
         step = make_train_step(model, opt_cfg, accum=accum, param_shardings=p_sh)
         dist.barrier()
-        torch.cuda.synchronize()
+        sync_stream(dev)
         t0 = time.perf_counter()
         with use_mesh(mesh):
             params, opt, m = step(params, opt, batch)
-        torch.cuda.synchronize()
+        sync_stream(dev)
         wall = time.perf_counter() - t0
         dist.barrier()
         out["steps"].append({"accum": accum, "loss": float(m["loss"]),
@@ -3509,16 +3507,15 @@ def mesh_rank(rank: int, p: int, host0: dict, batch_np: dict, ckpt_dir: str) -> 
         step(params, opt, batch)
     out["ops"] = ops.summary()
     del params, opt
-    # elastic restore of step 2 onto ("model",) = 4, one rank at a time:
-    # the ranks share this process, and a lookup graph's capture in one
-    # thread cannot overlap another's device-wide synchronize (the restore
-    # runs no collective, so the lock cannot stall one)
+    # elastic restore of step 2 onto ("model",) = 4, the four ranks at
+    # once and with no lock: each rebuilds its manifest index and captures
+    # its lookup graphs while the others do the same (the library never
+    # synchronizes the whole device, which would break a capture)
     mesh1 = init_device_mesh("cuda", (MESH_RANKS,), mesh_dim_names=("model",))
-    with MESH_INDEX_LOCK:
-        t0 = time.perf_counter()
-        got, stats = restore_checkpoint(ckpt_dir, 2, host0, backend="cuda",
-                                        shardings=params_shardings(mesh1, host0))
-        out["restore_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got, stats = restore_checkpoint(ckpt_dir, 2, host0, backend="cuda",
+                                    shardings=params_shardings(mesh1, host0))
+    out["restore_s"] = time.perf_counter() - t0
     out["restore_index_rebuild_s"] = stats["index_rebuild_s"]
     restored = tree_digests(got)
     check(restored == saved, f"rank {rank}: the restore onto ('model',) differs from the save")
@@ -3532,6 +3529,370 @@ def mesh_rank(rank: int, p: int, host0: dict, batch_np: dict, ckpt_dir: str) -> 
     check(placed_by_rules(got), f"rank {rank}: a restored leaf is not placed as the rules say")
     out["saved_digests"] = saved if rank == 0 else None
     return out
+
+
+#: [mesh] (d): llama3-8b at full width with its 32 layers cut to 4, bf16,
+#: at decode_32k's cache length (32,768) with its batch cut from 128 to 4:
+#: a 4 x 512 prefill, then 16 decode steps teacher-forced with one rank's
+#: greedy tokens; (e): qwen3-moe at full width with its 94 layers cut to 2
+#: (as [lm_serve] cuts it), sort dispatch, its 128 experts split two ways
+#: over "model": a 4 x 512 prefill and 8 decode steps.  (d) is held against
+#: one rank's logits, (e) against one rank run with the mesh's expert
+#: choices, both within [lm_serve]'s decode bound (LOGIT_TOL); (e)'s router
+#: probabilities against that run's within the same bound, and each choice
+#: of the mesh that differs from that run's top-k explained by their
+#: difference (``routing_gate``).  (e)'s logits against one rank's own
+#: routing are printed, not held: a token routed apart moves far
+MESH_DECODE = {"arch": "llama3-8b", "layers": 4, "batch": 4, "prompt": 512, "cache": 32768,
+               "steps": 16, "seed": 93}
+MESH_MOE = {"arch": "qwen3-moe-235b-a22b", "layers": 2, "batch": 4, "prompt": 512,
+            "cache": 1024, "steps": 8, "seed": 94}
+#: [mesh] (f): a lookup-graph capture beside a timed rebuild, rounds each
+MESH_CAPTURE = {"rebuild_keys": 1_000_000, "tree_keys": (200_000, 230_000), "queries": 1 << 14,
+                "rounds": 8}
+
+
+def zeros_placed(struct, shardings):
+    """Zero DTensors of ``struct``'s shapes and dtypes (meta tensors) under
+    ``shardings``, each rank making only its own block on its card."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if isinstance(struct, dict):
+        return {k: zeros_placed(v, shardings[k]) for k, v in struct.items()}
+    placements = shardings.placements(struct.dim())
+    local = list(struct.shape)
+    for i, pl in enumerate(placements):
+        if isinstance(pl, Shard):
+            local[pl.dim] //= shardings.mesh.size(i)
+    x = torch.zeros(local, dtype=struct.dtype, device=torch.cuda.current_device())
+    return DTensor.from_local(x, shardings.mesh, placements, run_check=False,
+                              shape=struct.shape, stride=struct.stride())
+
+
+def serve_one_rank(model, params, spec: dict, prompts: np.ndarray, dev,
+                   tokens: np.ndarray | None = None) -> dict:
+    """A prefill of ``prompts`` and ``spec["steps"]`` decode steps on one
+    rank, greedy or fed ``tokens``: each step's logits and the tokens, on
+    the host, and the walls."""
+    cache, feed = model.init_cache(spec["batch"], spec["cache"]), tokens
+    with torch.no_grad():
+        (cache, lg), prefill_s = sync_wall(
+            lambda: model.prefill(params, {"tokens": torch.from_numpy(prompts).to(dev)}, cache))
+        logits, tokens, walls = [lg.cpu()], [], []
+        for i in range(spec["steps"]):
+            tok = lg.argmax(-1) if feed is None else torch.from_numpy(feed[i]).to(dev)
+            tokens.append(tok.cpu().numpy())
+            (cache, lg), wall = sync_wall(lambda: model.decode_step(
+                params, cache, {"token": tok, "pos": spec["prompt"] + i}))
+            logits.append(lg.cpu())
+            walls.append(wall)
+    return {"logits": logits, "tokens": np.stack(tokens), "prefill_s": prefill_s,
+            "decode_ms": step_ms(walls)}
+
+
+def mesh_serve_rank(rank: int, p: int, cfg, params: dict, spec: dict, prompts: np.ndarray,
+                    tokens: np.ndarray) -> dict:
+    """One rank (a thread) of [mesh] (d) and (e): the serving parameters and
+    a zero cache placed by the rules on the (2, 2) mesh (the cache split on
+    its sequence over "model"), the prefill, then the decode steps fed
+    ``tokens`` (teacher forcing), each step's logits gathered; one more
+    step counted by ``OpCounter``; this rank's cache and expert-weight
+    blocks."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.distributed.ctx import use_mesh
+    from repro_torch.launch.opcount import OpCounter
+    from repro_torch.launch.shardings import (batch_shardings, cache_shardings,
+                                              params_shardings, place)
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = init_device_mesh("cuda", MESH["shape"], mesh_dim_names=MESH["axes"])
+    model = LM(cfg, device=dev)
+    p_sh = params_shardings(mesh, params)
+
+    def walk(tree, sh):  # this rank's block of each leaf
+        if isinstance(tree, dict):
+            return {k: walk(v, sh[k]) for k, v in tree.items()}
+        return distribute_tensor(tree, sh.mesh, sh.placements(tree.dim()), src_data_rank=None)
+
+    pm = walk(params, p_sh)
+    struct = model.cache_struct(spec["batch"], spec["cache"])
+    cache = zeros_placed(struct, cache_shardings(mesh, cfg, struct))
+
+    def token_batch(i):
+        b = {"token": torch.from_numpy(tokens[i]).to(dev)}
+        b = place(b, batch_shardings(mesh, b))
+        b["pos"] = spec["prompt"] + i
+        return b
+
+    out = {"rank": rank, "decode_s": []}
+    with use_mesh(mesh), torch.no_grad():
+        b = {"tokens": torch.from_numpy(prompts).to(dev)}
+        b = place(b, batch_shardings(mesh, b))
+        dist.barrier()
+        sync_stream(dev)
+        t0 = time.perf_counter()
+        cache, lg = model.prefill(pm, b, cache)
+        sync_stream(dev)
+        out["prefill_s"] = time.perf_counter() - t0
+        logits = [lg.full_tensor().cpu()]
+        for i in range(spec["steps"]):
+            b = token_batch(i)
+            dist.barrier()
+            sync_stream(dev)
+            t0 = time.perf_counter()
+            cache, lg = model.decode_step(pm, cache, b)
+            sync_stream(dev)
+            out["decode_s"].append(time.perf_counter() - t0)
+            logits.append(lg.full_tensor().cpu())
+        # one more step (at the next position), its collectives counted
+        b = token_batch(spec["steps"] - 1)
+        b["pos"] = spec["prompt"] + spec["steps"]
+        with OpCounter() as ops:
+            model.decode_step(pm, cache, b)
+    out["decode_ops"] = ops.summary()
+    out["cache_bytes"] = sum(t.to_local().numel() * t.element_size()
+                             for sub in cache.values() for t in sub.values())
+    out["cache_placements"] = str(cache["0"]["k"].placements)
+    out["experts"] = {name: {"local_shape": list(t.to_local().shape),
+                             "bytes": t.to_local().numel() * t.element_size()}
+                      for name, t in pm["blocks"]["0"].items() if name.startswith("moe_w")}
+    out["logits"] = logits if rank == 0 else None
+    return out
+
+
+@contextmanager
+def routing_spy(thread_name: str | None = None, forced: list | None = None):
+    """Record each MoE call's router probabilities and top-k expert ids (on
+    the host) in call order; with ``thread_name``, only that thread's
+    calls.  With ``forced`` (such a record), call i takes the experts of
+    ``forced[i]`` instead of its own top-k, each gated by its own
+    probability: one device run with another run's routing."""
+    seen = []
+    orig = moe_mod.top_k_lower
+
+    def spy(probs, k):
+        if forced is not None:
+            idx = forced[len(seen)][1].to(probs.device)
+            vals = probs.gather(-1, idx)
+        else:
+            vals, idx = orig(probs, k)
+        if thread_name is None or threading.current_thread().name == thread_name:
+            seen.append((probs.cpu(), idx.cpu()))
+        return vals, idx
+
+    moe_mod.top_k_lower = spy
+    try:
+        yield seen
+    finally:
+        moe_mod.top_k_lower = orig
+
+
+def routing_ties(one: list, mesh: list, rows: list) -> dict:
+    """Where the mesh routed a token to other experts than one rank did:
+    the token count (in every call, and at ``rows[i]``, the compared rows
+    of call i) and the widest one-rank probability gap between an expert
+    only one side chose and one only the other chose, relative to the
+    token's k-th largest probability."""
+    tokens = compared = 0
+    widest = 0.0
+    for i, ((probs, a), (_, b)) in enumerate(zip(one, mesh)):
+        a, b = a.sort(dim=-1).values, b.sort(dim=-1).values
+        differ = (a != b).any(-1)
+        tokens += int(differ.sum())
+        compared += int(differ[rows[i]].sum())
+        for t in torch.nonzero(differ).flatten().tolist():
+            sa, sb = set(a[t].tolist()), set(b[t].tolist())
+            p = probs[t]
+            kth = float(p[a[t]].min())
+            gap = (max(float(p[e]) for e in sa ^ sb) - min(float(p[e]) for e in sa ^ sb))
+            widest = max(widest, gap / kth)
+    return {"calls": len(one), "tokens": tokens, "compared_rows": compared,
+            "widest_gap_of_kth_prob": widest}
+
+
+def routing_gate(forced: list, mesh: list, k: int) -> dict:
+    """The mesh's expert choices against the forced run's own router
+    probabilities (the same routing history, call by call): where the
+    top-k of the forced run's probabilities differs from the mesh's
+    choice, the gap by which the strongest expert the mesh left out leads
+    the weakest one it took must be at most twice the token's largest
+    router-probability difference between the two runs, the noise that
+    can reorder them.  An expert taken against the probabilities fails
+    it."""
+    tokens = unexplained = 0
+    widest = 0.0
+    for (pf, _), (pm, b) in zip(forced, mesh):
+        a = moe_mod.top_k_lower(pf, k)[1]
+        differ = (a.sort(-1).values != b.sort(-1).values).any(-1)
+        noise = (pm - pf).abs().amax(-1)
+        for t in torch.nonzero(differ).flatten().tolist():
+            sa, sb = set(a[t].tolist()), set(b[t].tolist())
+            gap = (max(float(pf[t, e]) for e in sa - sb)
+                   - min(float(pf[t, e]) for e in sb - sa))
+            tokens += 1
+            unexplained += gap > 2 * float(noise[t]) + 1e-6
+            widest = max(widest, gap / max(2 * float(noise[t]), 1e-30))
+    return {"tokens": tokens, "unexplained": unexplained,
+            "widest_gap_of_twice_noise": widest}
+
+
+def mesh_serve(args, dev, spec: dict, part: str) -> dict:
+    """[mesh] (d) or (e): ``spec``'s model on one rank (greedy), then on the
+    (2, 2) mesh's four threaded ranks fed the one rank's tokens; every
+    step's logits within LOGIT_TOL of the logits' scale."""
+    from repro_torch.tools.rankgroup import run_threads
+
+    cfg = dataclasses.replace(ARCHS[spec["arch"]], n_layers=spec["layers"])
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, dispatch_mode="sort")
+    model = LM(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(args.seed + spec["seed"]))
+    rng = np.random.default_rng(args.seed + spec["seed"])
+    prompts = rng.integers(0, cfg.vocab_size, (spec["batch"], spec["prompt"]))
+    with routing_spy() as one_routes:
+        one = serve_one_rank(model, params, spec, prompts, dev)
+    t0 = time.perf_counter()
+    with routing_spy("rank0") as mesh_routes:
+        ranks = run_threads(mesh_serve_rank, MESH_RANKS, cfg, params, spec, prompts,
+                            one["tokens"], timeout=600.0)
+    group_s = time.perf_counter() - t0
+    got = ranks[0]["logits"]
+    errs = [logit_stats(g, w) for g, w in zip(got, one["logits"])]
+    worst = max(e / s for e, s in errs)
+    if cfg.n_experts:
+        # top-k routing is discontinuous: where the mesh's bf16 sums round
+        # apart from one rank's, a router tie can go the other way and move
+        # a token's logits far.  So the logits are held against one rank
+        # run with the mesh's expert choices, and the router's
+        # probabilities, whose order makes the choices, against that run's
+        # within the same bound
+        rows = ([[b * spec["prompt"] + spec["prompt"] - 1 for b in range(spec["batch"])]]
+                * cfg.n_layers + [slice(None)] * (len(one_routes) - cfg.n_layers))
+        ties = routing_ties(one_routes, mesh_routes, rows)
+        with routing_spy(forced=mesh_routes) as forced_routes:
+            forced = serve_one_rank(model, params, spec, prompts, dev, tokens=one["tokens"])
+        # the routing's inputs: the router probabilities of every call
+        # against the forced run's (the same routing history)
+        router_gap = max(float((pm - pf).abs().max()) / float(pf.abs().max())
+                         for (pf, _), (pm, _) in zip(forced_routes, mesh_routes))
+        gate = routing_gate(forced_routes, mesh_routes, cfg.top_k)
+        unforced = worst
+        errs = [logit_stats(g, w) for g, w in zip(got, forced["logits"])]
+        worst = max(e / s for e, s in errs)
+    # greedy agreement: the mesh's argmax against the one rank's tokens
+    agree = float(np.mean([np.array_equal(g.argmax(-1).numpy(), t)
+                           for g, t in zip(got[:-1], one["tokens"])]))
+    line = {
+        "part": part, "arch": cfg.name, "layers": cfg.n_layers,
+        "full_layers": ARCHS[cfg.name].n_layers, "batch": spec["batch"],
+        "cache_len": spec["cache"], "prompt": spec["prompt"], "steps": spec["steps"],
+        "max_logit_gap_of_scale": worst, "max_logit_gap": max(e for e, _ in errs),
+        "logit_tol": LOGIT_TOL, "greedy_agreement": agree,
+        "one_rank": {"prefill_s": one["prefill_s"], "decode_ms": one["decode_ms"]},
+        "mesh": {"prefill_s": [o["prefill_s"] for o in ranks],
+                 "decode_ms": [step_ms(o["decode_s"]) for o in ranks]},
+        "cache_bytes_a_rank": [o["cache_bytes"] for o in ranks],
+        "cache_placements": ranks[0]["cache_placements"],
+        "decode_step_collectives_a_rank": ranks[0]["decode_ops"]["collective_bytes"],
+        "decode_step_collective_counts": ranks[0]["decode_ops"]["collective_counts"],
+        "group_s": group_s,
+    }
+    if cfg.n_experts:
+        line["logits_against"] = "one rank with the mesh's routing"
+        line["unforced_max_logit_gap_of_scale"] = unforced
+        line["router_prob_gap_of_scale"] = router_gap
+        line["routing_differs"] = ties
+        line["routing_gate"] = gate
+        e_local = [o["experts"]["moe_w1"]["local_shape"][1] for o in ranks]
+        line["experts_a_rank"] = e_local
+        line["expert_bytes_a_rank"] = [sum(v["bytes"] for v in o["experts"].values())
+                                       for o in ranks]
+        line["expert_bytes_whole"] = sum(params["blocks"]["0"][k].numel()
+                                         * params["blocks"]["0"][k].element_size()
+                                         for k in ("moe_w1", "moe_w3", "moe_w2"))
+    print(f"[mesh] ({part}) {json.dumps(line)}; {card_line()}", flush=True)
+    check(all(bool(torch.isfinite(g).all()) for g in got), f"[mesh] ({part}): logits not finite")
+    check(worst <= LOGIT_TOL, f"[mesh] ({part}): the mesh's logits are {worst} of the scale "
+          f"from one rank's (bound {LOGIT_TOL})")
+    if cfg.n_experts:
+        check(router_gap <= LOGIT_TOL,
+              f"[mesh] (e): the router's probabilities are {router_gap} of the scale from one "
+              f"rank's with the same routing (bound {LOGIT_TOL})")
+        check(gate["unexplained"] == 0,
+              f"[mesh] (e): {gate['unexplained']} of {gate['tokens']} tokens routed to experts "
+              "that their router probabilities do not rank first within the runs' difference")
+        check(all(e == cfg.n_experts // MESH["shape"][1] for e in line["experts_a_rank"]),
+              f"[mesh] (e): ranks hold {line['experts_a_rank']} experts each, not "
+              f"{cfg.n_experts // MESH['shape'][1]}")
+    del params, model, ranks, one
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
+def capture_beside_rebuild(args, dev) -> dict:
+    """[mesh] (f): one thread captures lookup graphs (two trees of other
+    geometry in turn, so every round captures again) while another runs
+    ``ReconstructionPipeline.run`` with its per-stage waits, at once and
+    with no lock; every answer and every rebuild equal to a serial run's
+    (the library's waits are for the calling thread's stream, so neither
+    breaks the other's capture)."""
+    c = MESH_CAPTURE
+    pipe = ReconstructionPipeline(backend="cuda", device=dev)
+    sets = [zipf_keys(ZipfConfig(1.5, 64, 0, n), seed=args.seed + 95 + i)
+            for i, n in enumerate(c["tree_keys"])]
+    ks_r = zipf_keys(ZipfConfig(1.5, 64, 0, c["rebuild_keys"]), seed=args.seed + 97)
+    rng = np.random.default_rng(args.seed + 98)
+    queries = to_carrier(make_queries(np.concatenate([s.words for s in sets]), rng,
+                                      size=c["queries"])[0], dev)
+    trees = [pipe.run(s).tree for s in sets]
+    plancache.reset_cache()
+    want = [[digest(x) for x in pipe.backend.lookup(t, queries)] for t in trees]
+    want_run = result_digests(pipe.run(ks_r))
+    start = threading.Barrier(2)
+    errors, walls, captures = [], {}, [plancache.get_cache().captures]
+
+    def capturer():
+        try:
+            start.wait()
+            t0 = time.perf_counter()
+            for i in range(c["rounds"]):
+                got = [digest(x) for x in pipe.backend.lookup(trees[i % 2], queries)]
+                if got != want[i % 2]:
+                    errors.append(f"capture round {i}: answers differ from the serial run's")
+            walls["capture_s"] = time.perf_counter() - t0
+        except Exception as e:  # surfaced below
+            errors.append(f"capturer: {e!r}")
+
+    def rebuilder():
+        try:
+            other = ReconstructionPipeline(backend="cuda", device=dev)
+            start.wait()
+            t0 = time.perf_counter()
+            for i in range(c["rounds"]):
+                if result_digests(other.run(ks_r)) != want_run:
+                    errors.append(f"rebuild round {i}: differs from the serial run")
+            walls["rebuild_s"] = time.perf_counter() - t0
+        except Exception as e:  # surfaced below
+            errors.append(f"rebuilder: {e!r}")
+
+    threads = [threading.Thread(target=capturer), threading.Thread(target=rebuilder)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    check(not any(th.is_alive() for th in threads), "[mesh] (f): a thread did not finish")
+    check(errors == [], f"[mesh] (f): {errors[:3]}")
+    captures.append(plancache.get_cache().captures)
+    check(captures[1] - captures[0] >= c["rounds"],
+          f"[mesh] (f): {captures[1] - captures[0]} captures in {c['rounds']} rounds")
+    del trees, pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"rounds": c["rounds"], "captures": captures[1] - captures[0], **walls}
 
 
 def mesh_phase(args, dev, launches: dict) -> None:
@@ -3658,6 +4019,22 @@ def mesh_phase(args, dev, launches: dict) -> None:
         print(f"[mesh] dry run {json.dumps({'mesh': mesh_name, 'ranks': rec['n_devices'], 't_trace_s': rec['t_trace_s'], 'memory_gib': {k: v / 2**30 for k, v in rec['memory'].items()}, 'op_summary': rec['op_summary'], 'roofline': row})}",
               flush=True)
     predicted = recs["2x2"]["memory"]["peak_bytes"] / 2**30
+
+    # (d) decode and (e) the MoE on the mesh, then (f) a capture beside a
+    # rebuild; each part frees its models before the next
+    t_new = time.perf_counter()
+    card = card_line()
+    parts = {}
+    for part, spec in (("d", MESH_DECODE), ("e", MESH_MOE)):
+        t0 = time.perf_counter()
+        parts[part] = mesh_serve(args, dev, spec, part)
+        parts[part]["part_s"] = time.perf_counter() - t0
+        print(f"[mesh] ({part}) took {parts[part]['part_s']:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    parts["f"] = capture_beside_rebuild(args, dev)
+    parts["f"]["part_s"] = time.perf_counter() - t0
+    print(f"[mesh] (f) {json.dumps(parts['f'])}; {card}", flush=True)
+    new_parts_s = time.perf_counter() - t_new
     line = {
         "card": card_line(), "parameters": n_params, "ranks": MESH_RANKS,
         "mesh": dict(zip(MESH["axes"], MESH["shape"])),
@@ -3670,13 +4047,16 @@ def mesh_phase(args, dev, launches: dict) -> None:
         "predicted_peak_gib_four_ranks": 4 * predicted,
         "collectives_a_rank": [o["ops"] for o in ranks],
         "restore_model4_s": [o["restore_s"] for o in ranks],
-        "group_wall_s": group_wall, "phase_s": time.perf_counter() - t_phase,
-        "launches": acc,
+        "group_wall_s": group_wall, "parts_d_e_f_s": new_parts_s,
+        "phase_s": time.perf_counter() - t_phase, "launches": acc,
     }
     print(f"[mesh] {json.dumps(line)}", flush=True)
     print("[mesh] the (2, 2) mesh's steps at accum 1 and 2 == one rank's within the tolerances; "
-          "the restore onto ('model',) = 4 and onto one rank == the saved tree to the bit; "
-          "the dry runs fit 80 GiB", flush=True)
+          "the restores onto ('model',) = 4, four threads at once with no lock, and onto one "
+          "rank == the saved tree to the bit; the dry runs fit 80 GiB; decode over the "
+          "sequence-split cache and the expert-parallel MoE == one rank's within "
+          f"{LOGIT_TOL} of the scale; lookup-graph captures beside a timed rebuild == serial "
+          f"runs; (d)-(f) took {new_parts_s:.1f} s; {card}", flush=True)
 
 
 def main(argv=None) -> int:

@@ -50,7 +50,7 @@ import torch
 import torch.distributed as dist
 
 from .dbits import lex_compare_le, sort_words
-from .u32 import MASK32
+from .u32 import MASK32, sync_stream
 
 __all__ = ["DistSortResult", "group_layout", "make_sample_sort", "sample_sort",
            "all_gather_rows", "to_wire", "from_wire"]
@@ -110,8 +110,7 @@ def from_wire(x: torch.Tensor) -> torch.Tensor:
 
 
 def _sync(t: torch.Tensor) -> None:
-    if t.device.type == "cuda":
-        torch.cuda.synchronize(t.device)
+    sync_stream(t.device)
 
 
 def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:

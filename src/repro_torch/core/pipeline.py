@@ -12,8 +12,9 @@ breakdown) and per-run stats.  The stages dispatch to an
 oracle), ``cuda`` (the hand-written kernels) or ``distributed`` (the
 sample sort over a ``torch.distributed`` group, each rank's stages on
 ``cuda`` or ``torch``).  By default every stage
-ends in a device synchronize, so each timing covers the stage's device
-work; ``async_dispatch`` syncs once at the end instead.
+ends in a wait for the caller's stream (``u32.sync_stream``), which holds
+all the stage's device work, so each timing covers it; ``async_dispatch``
+waits once at the end instead.
 
 * **chunked large-N sort** — above ``chunk_threshold`` keys the sort runs
   chunk by chunk and folds the sorted chunks with a binary-counter ladder
@@ -51,7 +52,7 @@ from .btree import BTree, BTreeConfig
 from .keyformat import KeySet
 from .metadata import DSMeta, meta_from_keys
 from .sortkeys import word_comparison_counts
-from .u32 import MASK32, to_carrier
+from .u32 import MASK32, sync_stream, to_carrier
 
 __all__ = [
     "ReconstructionResult",
@@ -136,7 +137,7 @@ class ReconstructionPipeline:
                    ``chunk_size`` chunks, each sorted on its own, folded
                    by a binary-counter ladder of ``merge_sorted`` calls.
     chunk_size:    chunk length for the large-N path (power of two).
-    async_dispatch: no device synchronize between stages, one at the end
+    async_dispatch: no wait for the card between stages, one at the end
                    of ``run``/``run_incremental``.  Stage timings then
                    measure the host's enqueue; ``stage_timings=True``
                    restores the barriers for one call.  Results are
@@ -221,8 +222,7 @@ class ReconstructionPipeline:
     def _sync(self) -> float:
         """Wait for the device; returns the blocked wall."""
         t0 = time.perf_counter()
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        sync_stream(self.device)
         return time.perf_counter() - t0
 
     def _stage(self, sync: bool, fn, *args):

@@ -49,10 +49,21 @@ reference replays its compiled program on the new tree; a new tree shape
 is a new signature and captures again.  A program keeps only its newest
 signature's graph: a replaced, evicted or reset graph frees its pool and
 buffers.  Before each capture the body runs once eagerly (the trace,
-which also loads the kernel library), and the capture runs with
-``capture_error_mode="thread_local"``, so another thread's work on the
-card cannot break it.  A capture that fails raises; no path falls back
-to the eager body.  A replay launches kernels that Python never calls,
+which also loads the kernel library).  The capture runs on the program's
+own stream with ``capture_error_mode="thread_local"``, which keeps
+another thread's kernel launches and allocations from breaking it; what
+would still break it is a device-wide synchronize in any thread, since
+that waits on the capturing stream.  So the port has none: every wait
+for the card (here, the pipeline's timed stages, the distributed sort,
+the chunk tuner) is ``u32.sync_stream``, a wait for the calling
+thread's own stream, and the capture is begun with ``capture_begin``
+rather than ``torch.cuda.graph``, whose entry synchronizes the device.
+The one device-wide call left, the release of the allocator's cached
+blocks that makes room for a graph's private pool, runs under a
+process-wide capture lock that every capture holds, so it never meets
+another thread's capture.  Threads may therefore replay and rebuild
+beside a capture, and capture one at a time.  A
+capture that fails raises; no path falls back to the eager body.  A replay launches kernels that Python never calls,
 so each graph records the launches its capture made
 (``cudalib.recording``) and adds them to the launch counts on every
 replay.
@@ -94,7 +105,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from .u32 import MASK32, resolve_device, to_carrier, to_u32
+from .u32 import MASK32, resolve_device, sync_stream, to_carrier, to_u32
 
 __all__ = [
     "BUCKET_MIN",
@@ -520,19 +531,31 @@ class _Graphed(_Traced):
         t0 = time.perf_counter()
         if self._stream is None:
             self._stream = torch.cuda.Stream(dev)
-        torch.cuda.synchronize(dev)
         self.cache._count_trace(self.op)
         tree_buf = _clone_tree(tree)
         q_buf = queries.clone(memory_format=torch.contiguous_format)
         nv = np.asarray(n_valid, np.int64)
         nv_buf = torch.from_numpy(nv.copy()).to(dev)
         self.body(tree_buf, q_buf, nv_buf)  # eager: the trace
+        # the buffers and the trace are on this thread's stream: wait for
+        # them there (never device-wide, see u32.sync_stream)
+        sync_stream(dev)
         graph = torch.cuda.CUDAGraph()
-        with cudalib.recording() as rec:
-            with torch.cuda.graph(graph, stream=self._stream,
-                                  capture_error_mode="thread_local"):
-                out = self.body(tree_buf, q_buf, nv_buf)
-        torch.cuda.synchronize(dev)
+        # one capture at a time in the process: under the lock no other
+        # thread's capture is underway, so the allocator's cached blocks
+        # can be released first (as ``torch.cuda.graph`` does), which
+        # gives the graph's private pool room on a full card; released
+        # during another thread's capture, they would fail it.  The capture
+        # itself is capture_begin/capture_end, not ``torch.cuda.graph``,
+        # whose entry also synchronizes the whole device
+        with _CAPTURE_LOCK:
+            torch.cuda.empty_cache()
+            with cudalib.recording() as rec, torch.cuda.stream(self._stream):
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    out = self.body(tree_buf, q_buf, nv_buf)
+                finally:
+                    graph.capture_end()
         self._graph, self._out = graph, tuple(out)
         self._tree_buf, self._q_buf, self._nv_buf = tree_buf, q_buf, nv_buf
         self._tree_ref = weakref.ref(tree)
@@ -578,6 +601,8 @@ def _clone_tree(tree):
 
 
 _GLOBAL = PlanCache()
+#: held by every lookup-graph capture of the process (see ``_Graphed._capture``)
+_CAPTURE_LOCK = threading.Lock()
 
 
 def get_cache() -> PlanCache:
@@ -972,13 +997,12 @@ def _cascade_warm_model(n: int, c: int, sort_w: float, merge_w: float) -> float:
 
 def _median_wall(fn, iters: int, device: torch.device) -> float:
     """Median host wall of ``fn`` over ``iters`` calls, each ended by a
-    device synchronize on a CUDA device."""
+    wait for this thread's stream on a CUDA device."""
     walls = []
     for _ in range(max(int(iters), 1)):
         t0 = time.perf_counter()
         fn()
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+        sync_stream(device)
         walls.append(time.perf_counter() - t0)
     walls.sort()
     return walls[len(walls) // 2]

@@ -10,6 +10,9 @@ kernels reinterpret the low word as ``uint32_t`` instead).
 
 These helpers are the only crossing points between the numpy ``uint32``
 arrays the host side uses (``KeySet``, ``DSMeta``) and the carrier.
+Beside them sit the port's two device helpers: :func:`resolve_device`
+(CUDA unless the caller names a device) and :func:`sync_stream` (the one
+wait for the card).
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["MASK32", "to_carrier", "to_u32", "resolve_device"]
+__all__ = ["MASK32", "to_carrier", "to_u32", "resolve_device", "sync_stream"]
 
 #: the low 32 bits — applied after every left shift of a carrier value
 MASK32 = 0xFFFFFFFF
@@ -35,6 +38,18 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run on the host"
         )
     return dev
+
+
+def sync_stream(device) -> None:
+    """Wait for the work this thread queued on ``device``'s current stream.
+
+    The port's one wait for the card.  It never synchronizes the whole
+    device: a device-wide wait also waits on a stream that another thread
+    is capturing into a CUDA graph, which invalidates that capture
+    whatever its ``capture_error_mode``.  A no-op off CUDA."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
 
 
 def to_carrier(x, device: torch.device | str) -> torch.Tensor:

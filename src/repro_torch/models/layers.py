@@ -22,7 +22,7 @@ from __future__ import annotations
 import math
 
 import torch
-from torch.distributed.tensor import DTensor, Partial
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.distributed.ctx import axis_size, constrain, current
 
@@ -33,6 +33,7 @@ __all__ = [
     "apply_rope",
     "flash_attention",
     "decode_attention",
+    "write_cache",
     "chunked_softmax_xent",
 ]
 
@@ -230,12 +231,28 @@ def decode_attention(
     q: (B, Hq, 1, dh); caches: (B, G, S, dh); length: an int, a () or a
     (B,) tensor of valid kv counts.  The sequence axis is split into
     segments whose online-softmax partials are merged by a max/logsumexp
-    combine.
+    combine.  On a mesh (a DTensor cache) see
+    :func:`_mesh_decode_attention`.
     """
+    if isinstance(k_cache, DTensor):
+        return _mesh_decode_attention(q, k_cache, v_cache, length, kv_chunk)
+    B, Hq, _, dh = q.shape
+    m, l, acc = _decode_partials(q, k_cache, v_cache, length, kv_chunk, offset=0)
+    out = acc / l[..., None].clamp_min(1e-30)
+    return out.reshape(B, Hq, 1, dh).to(q.dtype)
+
+
+def _decode_partials(q, k_cache, v_cache, length, kv_chunk, offset):
+    """The merged online-softmax partials of one cache slice: ``(m, l,
+    acc)``, (B, G, r) maxima, (B, G, r) weights and (B, G, r, dh)
+    unnormalized outputs, f32.  The slice holds the global positions
+    ``offset ..``; a position counts where it lies below ``length`` and
+    inside the slice (not in the zero pad of a ragged tail)."""
     B, Hq, _, dh = q.shape
     G, S = k_cache.shape[1], k_cache.shape[2]
     r = Hq // G
     kv_chunk = min(kv_chunk, S)
+    n_real = S
     if S % kv_chunk:  # ragged tail (small tests): pad; masked out below
         pad = kv_chunk - S % kv_chunk
         zeros = torch.zeros((B, G, pad, dh), dtype=k_cache.dtype, device=k_cache.device)
@@ -244,15 +261,16 @@ def decode_attention(
         S += pad
     ns, sc = S // kv_chunk, kv_chunk
     qg = q.reshape(B, G, r, dh)
-    k5 = constrain(k_cache.reshape(B, G, ns, sc, dh), "data", None, "model", None, None)
-    v5 = constrain(v_cache.reshape(B, G, ns, sc, dh), "data", None, "model", None, None)
+    k5 = k_cache.reshape(B, G, ns, sc, dh)
+    v5 = v_cache.reshape(B, G, ns, sc, dh)
     scale = 1.0 / math.sqrt(dh)
     length = torch.as_tensor(length, device=q.device)
     lb = length.expand(B) if length.dim() == 0 else length  # (B,)
 
     s = _einsum_f32("bgrd,bgscd->bgrsc", qg, k5) * scale
     pos = (torch.arange(ns, device=q.device) * sc)[:, None] + torch.arange(sc, device=q.device)
-    mask = (pos[None] < lb[:, None, None])[:, None, None]  # (B, 1, 1, ns, sc)
+    mask = (pos[None] + offset < lb[:, None, None]) & (pos[None] < n_real)
+    mask = mask[:, None, None]  # (B, 1, 1, ns, sc)
     s = s.masked_fill(~mask, -math.inf)
     m_s = s.amax(dim=-1)  # (B, G, r, ns)
     safe = torch.where(torch.isfinite(m_s), m_s, 0.0)
@@ -264,8 +282,97 @@ def decode_attention(
     w = torch.where(torch.isfinite(m_s),
                     torch.exp(m_s - torch.where(torch.isfinite(m), m, 0.0)), 0.0)
     l = (w * l_s).sum(dim=-1)  # (B, G, r)
-    out = (w[..., None] * acc_s).sum(dim=3) / l[..., None].clamp_min(1e-30)
-    return out.reshape(B, Hq, 1, dh).to(q.dtype)
+    acc = (w[..., None] * acc_s).sum(dim=3)  # (B, G, r, dh)
+    return m[..., 0], l, acc
+
+
+def _split_offset(cache: DTensor, dim: int) -> tuple[list, int]:
+    """The mesh dims that split dim ``dim`` of a (B, G, S, dh) cache
+    DTensor, and this rank's first global index along it.  The cache may
+    be split only on its batch (data axes) and sequence (model axis)
+    dims, as ``launch.shardings.cache_shardings`` places it."""
+    mesh = cache.device_mesh
+    dims = []
+    for i, pl in enumerate(cache.placements):
+        if isinstance(pl, Shard):
+            if pl.dim not in (0, 2):
+                raise ValueError(f"a KV cache split on dim {pl.dim}: only its batch and "
+                                 "sequence dims may be split")
+            if pl.dim == dim:
+                dims.append(i)
+    coord = mesh.get_coordinate()
+    idx = 0
+    for i in dims:  # DTensor splits a dim over its mesh dims in order
+        idx = idx * mesh.size(i) + coord[i]
+    return dims, idx * cache.to_local().shape[dim]
+
+
+def _batch_like(x: torch.Tensor, cache: DTensor) -> torch.Tensor:
+    """``x`` (a DTensor) as a local tensor split on its batch dim as the
+    cache is, whole on every other dim."""
+    pl = [p if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in cache.placements]
+    return x.redistribute(cache.device_mesh, pl).to_local()
+
+
+def _mesh_decode_attention(q, k_cache, v_cache, length, kv_chunk):
+    """:func:`decode_attention` of DTensors inside ``use_mesh``: the JAX
+    package's flash-decoding over a cache whose sequence dim is split over
+    the model axis.
+
+    Each rank runs the segments of its own cache slice as plain tensors,
+    masking by global position (its offset along the split plus the local
+    one), against the query whole in heads (``(B_local, Hq, dh)``, small).
+    The slices' partials are merged across the split with explicit
+    collectives: the max of ``m``, then the sums of ``w·l`` and ``w·acc``
+    (``w = exp(m - max)``) in one all-reduce, ``(B_local, Hq, dh + 2)`` f32
+    in all.  The cache never moves.  Where the split leaves the sequence
+    whole (``guard_spec``), every rank attends over all of it and there is
+    nothing to merge.  The output goes back with the query's placements."""
+    if current() is None:
+        raise RuntimeError("attention over DTensors runs inside distributed.ctx.use_mesh")
+    from torch.distributed import _functional_collectives as funcol
+
+    mesh = k_cache.device_mesh
+    B, Hq, _, dh = q.shape
+    dims, offset = _split_offset(k_cache, 2)
+    ql = _batch_like(q, k_cache)
+    length = torch.as_tensor(length, device=ql.device)
+    if length.dim():  # (B,) counts: this rank's batch rows
+        b0 = _split_offset(k_cache, 0)[1]
+        length = length[b0:b0 + ql.shape[0]]
+    m, l, acc = _decode_partials(ql, k_cache.to_local(), v_cache.to_local(), length,
+                                 kv_chunk, offset)
+    for i in dims:
+        top = funcol.all_reduce(m, "max", (mesh, i))
+        w = torch.where(torch.isfinite(m),
+                        torch.exp(m - torch.where(torch.isfinite(top), top, 0.0)), 0.0)
+        part = torch.cat([(w * l)[..., None], w[..., None] * acc], dim=-1)
+        part = funcol.all_reduce(part, "sum", (mesh, i))
+        m, l, acc = top, part[..., 0], part[..., 1:]
+    out = (acc / l[..., None].clamp_min(1e-30)).reshape(ql.shape[0], Hq, 1, dh).to(q.dtype)
+    pl = [p if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in k_cache.placements]
+    shape = (B, Hq, 1, dh)
+    out = DTensor.from_local(out, mesh, pl, run_check=False, shape=shape,
+                             stride=_contiguous_stride(shape))
+    return out.redistribute(mesh, q.placements) if isinstance(q, DTensor) else out
+
+
+def write_cache(cache: torch.Tensor, new: torch.Tensor, start: int) -> None:
+    """``cache[:, :, start:start + T] = new`` in place: a (B, G, S, dh)
+    cache, ``new`` (B, G, T, dh).  On a DTensor cache each rank writes
+    the part of the range that falls inside its own sequence slice, in
+    place in its local tensor (the JAX package's ``dynamic_update_slice``);
+    a range may straddle two ranks' slices, and no rank gathers the
+    cache."""
+    if not isinstance(cache, DTensor):
+        cache[:, :, start:start + new.shape[2]] = new
+        return
+    _, offset = _split_offset(cache, 2)
+    local = cache.to_local()
+    nl = _batch_like(new, cache)
+    lo, hi = max(start, offset), min(start + nl.shape[2], offset + local.shape[2])
+    if lo < hi:
+        local[:, :, lo - offset:hi - offset] = nl[:, :, lo - start:hi - start]
 
 
 # ---------------------------------------------------------------------------

@@ -68,6 +68,7 @@ from .layers import (
     flash_attention,
     rms_norm,
     silu,
+    write_cache,
 )
 from .moe import moe_ffn
 from .ssm import mamba_mix
@@ -328,6 +329,14 @@ class LM:
             return params["embed"].T.to(_F32)
         return params["lm_head"]
 
+    def _logits(self, params, h: torch.Tensor) -> torch.Tensor:
+        """(B, V) f32 logits of the (B, d) states ``h``.  On a mesh, as in
+        :meth:`loss`: the states split by batch and whole in d, the head
+        whole in d and split over the vocab, so no rank multiplies the
+        whole batch by a slice of d."""
+        h = constrain(h.to(_F32), "data", None)
+        return h @ constrain(self._head(params), None, "model")
+
     def _input(self, x, dtype=None) -> torch.Tensor:
         if isinstance(x, DTensor):  # already on the mesh's devices
             return x if dtype is None else x.to(dtype)
@@ -363,17 +372,19 @@ class LM:
             k = apply_rope(k, positions, cfg.rope_theta)
         if mode in ("train", "prefill"):
             if mode == "prefill":
-                kv_cache["k"][:, :, :T] = k
-                kv_cache["v"][:, :, :T] = v
+                write_cache(kv_cache["k"], k, 0)
+                write_cache(kv_cache["v"], v, 0)
             if cfg.attn_repeat_kv and G < H:
                 k, v = k.repeat_interleave(H // G, dim=1), v.repeat_interleave(H // G, dim=1)
             o = flash_attention(q, k, v, causal=True,
                                 q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
         else:  # decode: the new KV goes in at pos, in place
-            kv_cache["k"][:, :, pos:pos + T] = k
-            kv_cache["v"][:, :, pos:pos + T] = v
-            o = decode_attention(q, kv_cache["k"], kv_cache["v"], pos + 1,
-                                 kv_chunk=cfg.kv_chunk)
+            write_cache(kv_cache["k"], k, pos)
+            write_cache(kv_cache["v"], v, pos)
+            # the query whole in heads on every rank (small): each rank
+            # attends with all of them over its slice of the cache
+            o = decode_attention(constrain(q, "data", None, None, None), kv_cache["k"],
+                                 kv_cache["v"], pos + 1, kv_chunk=cfg.kv_chunk)
         # split as the projections are, so that the backward's view back to
         # heads is an even one too
         o = _split_heads(o.transpose(1, 2).reshape(B, T, H * hd), H)
@@ -516,7 +527,7 @@ class LM:
         h, _ = self._forward(params, h, mode="prefill", pos=0, cache=cache,
                              img_embeds=batch.get("img_embeds"))
         h = rms_norm(h, params["final_norm"], self.cfg.norm_eps)
-        return cache, h[:, -1].to(_F32) @ self._head(params)
+        return cache, self._logits(params, h[:, -1])
 
     def decode_step(self, params, cache, batch) -> tuple[dict, torch.Tensor]:
         """batch: {token: (B,) | frame: (B, d), pos: int} -> (cache, logits)."""
@@ -528,7 +539,7 @@ class LM:
         h, _ = self._forward(params, h, mode="decode", pos=pos, cache=cache,
                              img_embeds=batch.get("img_embeds"))
         h = rms_norm(h, params["final_norm"], self.cfg.norm_eps)
-        return cache, h[:, 0].to(_F32) @ self._head(params)
+        return cache, self._logits(params, h[:, 0])
 
     # ---------------------------------------------------------------- caches
     def init_cache(self, batch_size: int, max_seq: int) -> dict:

@@ -228,6 +228,45 @@ def _twin(name: str):
     return module
 
 
+def test_no_device_wide_synchronize_outside_the_stream_wait():
+    """The port waits for the card only through ``u32.sync_stream``, a wait
+    for the calling thread's own stream.  A device-wide synchronize (or
+    ``torch.cuda.graph``'s entry, which makes one) in any thread waits on
+    the stream another thread is capturing a lookup graph on, and that
+    invalidates the capture; so no source of ``core/``, ``ckpt/`` or
+    ``serve/`` (nor any other module of the package) makes one."""
+    import inspect
+
+    from repro_torch.core import plancache, u32
+
+    wide = re.compile(r"\bcuda\.synchronize\(|\bcuda\.graph\(|cudaDeviceSynchronize"
+                      r"|\.synchronize\(\)")
+    guarded = [f for sub in ("core", "ckpt", "serve") for f in sorted((PACKAGE / sub).rglob("*.py"))]
+    assert len(guarded) > 15
+    files = sorted(set(guarded) | set(PACKAGE.rglob("*.py")) | set(PACKAGE.rglob("*.cu")))
+    helper = inspect.getsource(u32.sync_stream)
+    offenders = []
+    for f in files:
+        text = f.read_text()
+        if f == PACKAGE / "core" / "u32.py":
+            text = text.replace(helper, "")
+        offenders += [f"{f.relative_to(ROOT)}: {m.group(0)}" for m in wide.finditer(text)]
+    assert offenders == []
+    # the one release of the allocator's cache (a device-wide call) runs
+    # under the capture lock that every capture holds
+    frees = [(f, line) for f in files for line in f.read_text().splitlines()
+             if "empty_cache(" in line and not line.lstrip().startswith("#")]
+    assert [f.relative_to(PACKAGE).as_posix() for f, _ in frees] == ["core/plancache.py"]
+    capture = inspect.getsource(plancache._Graphed._capture)
+    assert "with _CAPTURE_LOCK:\n            torch.cuda.empty_cache()" in capture
+    assert capture.index("with _CAPTURE_LOCK:") < capture.index("graph.capture_begin(")
+    # the helper itself waits for one stream, never the device
+    assert "current_stream(device).synchronize()" in helper
+    assert not re.search(r"\bcuda\.synchronize\(", helper)
+    assert wide.search("torch.cuda.synchronize(dev)") and wide.search("with torch.cuda.graph(g):")
+    u32.sync_stream("cpu")  # a no-op off CUDA
+
+
 def test_rank_group_starts_its_ranks_with_spawn(monkeypatch):
     """The ranks start with ``spawn``, never ``fork``: the parent may hold
     a CUDA context, which a forked child cannot use."""

@@ -936,6 +936,66 @@ def test_lookup_graph_readers_beside_a_capturing_writer(dev):
     assert plancache.get_cache().captures >= 2  # two geometries
 
 
+def test_lookup_graph_captures_beside_a_timed_rebuild(dev):
+    """One thread captures lookup graphs (two trees of different geometry
+    taken in turn, so every round captures again) while another runs
+    ``ReconstructionPipeline.run`` with its per-stage waits, both at once,
+    for a fixed number of rounds and with no lock: every answer and every
+    rebuilt tree equals a serial run's.  A device-wide synchronize in the
+    rebuild would invalidate the captures."""
+    rounds = 8
+    pipe = ReconstructionPipeline(backend="cuda", device=dev)
+    sets = [_zipf_like(90, 3000), _zipf_like(91, 3500)]
+    ks_r = _zipf_like(92, 20000)
+    queries = to_carrier(np.concatenate([s.words[:200] for s in sets]), dev)
+    trees = [pipe.run(s).tree for s in sets]
+    plancache.reset_cache()
+    want = [tuple(x.cpu() for x in pipe.backend.lookup(t, queries)) for t in trees]
+    want_tree = {k: v.cpu() for k, v in _tree_dict(pipe.run(ks_r).tree).items()}
+    prog = _lookup_program(plancache.bucket_for("lookup", int(queries.shape[0])), 16)
+    captures = prog.captures
+    start = threading.Barrier(2)
+    errors, done = [], {"capture": 0, "rebuild": 0}
+
+    def capturer():
+        try:
+            start.wait()
+            for i in range(rounds):
+                f, r = pipe.backend.lookup(trees[i % 2], queries)
+                if not (torch.equal(f.cpu(), want[i % 2][0])
+                        and torch.equal(r.cpu(), want[i % 2][1])):
+                    errors.append(f"capture round {i}: wrong answers")
+                done["capture"] += 1
+        except Exception as e:  # surfaced below
+            errors.append(repr(e))
+
+    def rebuilder():
+        try:
+            rebuild = ReconstructionPipeline(backend="cuda", device=dev)
+            start.wait()
+            for i in range(rounds):
+                got = _tree_dict(rebuild.run(ks_r).tree)
+                if any(not torch.equal(got[k].cpu(), v) for k, v in want_tree.items()):
+                    errors.append(f"rebuild round {i}: a different tree")
+                done["rebuild"] += 1
+        except Exception as e:  # surfaced below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=capturer), threading.Thread(target=rebuilder)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    assert not any(th.is_alive() for th in threads)
+    assert errors == [], errors[:3]
+    assert done == {"capture": rounds, "rebuild": rounds}
+    assert prog.captures == captures + rounds
+
+
+def _tree_dict(tree) -> dict:
+    return {str(i): t for i, t in enumerate(plancache._tree_tensors(tree))}
+
+
 def test_evicted_lookup_graph_frees_its_pool(dev):
     """An LRU-evicted lookup graph and a reset cache give back every byte
     their buffers and pools held."""
@@ -1422,15 +1482,13 @@ def test_elastic_restore_on_the_card(dev, tmp_path):
     params = model.init_master(torch.Generator(device=dev).manual_seed(1))
     save_checkpoint(tmp_path, 3, params, device=dev)
     cudalib.reset_launches()
-    # the threads rebuild their indexes one at a time: a lookup graph's
-    # capture in one cannot overlap another's device-wide synchronize
-    lock = threading.Lock()
 
+    # the four threads rebuild their indexes and capture their lookup
+    # graphs at once, with no lock
     def rank_fn(rank, p):
         mesh = init_device_mesh("cuda", (2, 2), mesh_dim_names=("data", "model"))
-        with lock:
-            got, stats = restore_checkpoint(tmp_path, 3, params, backend="cuda",
-                                            shardings=params_shardings(mesh, params))
+        got, stats = restore_checkpoint(tmp_path, 3, params, backend="cuda",
+                                        shardings=params_shardings(mesh, params))
         assert stats["index_backend"] == "cuda"
         for (path, a), (_, b) in zip(_flat_leaves(got), _flat_leaves(params)):
             assert torch.equal(a.full_tensor(), b), path

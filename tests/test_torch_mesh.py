@@ -80,6 +80,9 @@ MESHES = {"2x2": ((2, 2), ("data", "model")), "pod1": ((16, 16), ("data", "model
 REF_OPT = ref_optim.OptConfig(warmup_steps=10, decay_steps=50)
 OPT = optim.OptConfig(warmup_steps=10, decay_steps=50)
 B, T = 4, 32
+#: the decode cache's length: its halves (the (2, 2) mesh's "model" split)
+#: hold 24 positions each, so the prefill's write of T = 32 straddles them
+S_DEC, N_DEC = 48, 3
 
 
 def _stand_in(name):
@@ -233,10 +236,16 @@ def group(tmp_path_factory):
     moe_raw = jax.tree_util.tree_map(np.asarray, rmoe.init(jax.random.PRNGKey(1)))
     moe_batch = {"tokens": rng.integers(0, rmoe_cfg.vocab_size, (B, T)).astype(np.int32),
                  "labels": rng.integers(0, rmoe_cfg.vocab_size, (B, T)).astype(np.int32)}
+    dec_tokens = rng.integers(0, rcfg.vocab_size, (B, N_DEC)).astype(np.int32)
+    attn = {"q": rng.normal(size=(B, rcfg.n_heads, 1, rcfg.hd)).astype(np.float32),
+            "k": rng.normal(size=(B, rcfg.n_kv_heads, S_DEC, rcfg.hd)).astype(np.float32),
+            "v": rng.normal(size=(B, rcfg.n_kv_heads, S_DEC, rcfg.hd)).astype(np.float32),
+            "length": np.array([S_DEC, 30, S_DEC // 2, 7], np.int64), "kv_chunk": 16}
     inputs = d / "inputs.pkl"
     with open(inputs, "wb") as f:
         pickle.dump({"params": raw, "batch": batch, "opt_cfg": OPT, "ckpt_dir": str(ckpt),
-                     "moe_cfg": moe_cfg, "moe_params": moe_raw, "moe_batch": moe_batch}, f)
+                     "moe_cfg": moe_cfg, "moe_params": moe_raw, "moe_batch": moe_batch,
+                     "dec_tokens": dec_tokens, "cache_shape": (B, S_DEC), "attn": attn}, f)
     # the reference's HLO count of the dry-run cell, compiled meanwhile
     hlo = subprocess.Popen([sys.executable, "-c", _REF_DRYRUN], stdout=subprocess.PIPE,
                            stderr=subprocess.PIPE, text=True,
@@ -246,6 +255,7 @@ def group(tmp_path_factory):
     out, err = hlo.communicate(timeout=600)
     assert hlo.returncode == 0, err[-3000:]
     return {"raw": raw, "batch": batch, "ref": ref, "moe": (rmoe, moe_cfg, moe_raw, moe_batch),
+            "dec_tokens": dec_tokens, "attn": attn,
             "got": ranks[0], "ref_hlo": json.loads(out.strip().splitlines()[-1]),
             "tmp": d}
 
@@ -321,33 +331,57 @@ def test_moe_sort_dispatch_under_mesh(group):
 
 
 _REF_DRYRUN = textwrap.dedent("""
+    import dataclasses
     import json
     import jax
+    import jax.numpy as jnp
     from repro.compat import make_mesh, set_mesh
     from repro.configs import ARCHS
     from repro.configs.base import ShapeConfig
     from repro.launch.hloanalysis import analyze_hlo
-    from repro.launch.shardings import (batch_shardings, opt_shardings, params_shardings,
-                                        replicated)
+    from repro.launch.shardings import (batch_shardings, cache_shardings, opt_shardings,
+                                        params_shardings, replicated)
     from repro.models.lm import LM, input_specs
     from repro.train.optim import OptConfig, adamw_init
     from repro.train.trainstep import make_train_step
-    cfg = ARCHS["llama3-8b"].reduced()
-    shape = ShapeConfig("small", "train", 32, 4, accum=1)
     mesh = make_mesh((2, 2), ("data", "model"))
-    model = LM(cfg)
-    ps = model.param_struct()
-    p_sh = params_shardings(mesh, ps)
-    bs = input_specs(cfg, shape)
-    os_ = jax.eval_shape(adamw_init, ps)
-    step = make_train_step(model, OptConfig(), accum=1, param_shardings=p_sh)
-    fn = jax.jit(step, in_shardings=(p_sh, opt_shardings(mesh, os_, p_sh), batch_shardings(mesh, bs)),
-                 out_shardings=(p_sh, opt_shardings(mesh, os_, p_sh), replicated(mesh)),
-                 donate_argnums=(0, 1))
-    with set_mesh(mesh):
-        compiled = fn.lower(ps, os_, bs).compile()
-    print(json.dumps(analyze_hlo(compiled.as_text()).as_dict()))
+
+    def train(cfg, shape):
+        model = LM(cfg)
+        ps = model.param_struct()
+        p_sh = params_shardings(mesh, ps)
+        bs = input_specs(cfg, shape)
+        os_ = jax.eval_shape(adamw_init, ps)
+        step = make_train_step(model, OptConfig(), accum=1, param_shardings=p_sh)
+        o_sh = opt_shardings(mesh, os_, p_sh)
+        fn = jax.jit(step, in_shardings=(p_sh, o_sh, batch_shardings(mesh, bs)),
+                     out_shardings=(p_sh, o_sh, replicated(mesh)), donate_argnums=(0, 1))
+        with set_mesh(mesh):
+            return fn.lower(ps, os_, bs).compile()
+
+    def decode(cfg, shape):  # the reference dry run's serving cell
+        model = LM(cfg)
+        ps = model.param_struct()
+        sp = jax.tree_util.tree_map(lambda s: jax.ShapeDtypeStruct(
+            s.shape, jnp.bfloat16 if (s.dtype == jnp.float32 and len(s.shape) >= 2)
+            else s.dtype), ps)
+        cs = model.cache_struct(shape.global_batch, shape.seq_len)
+        bs = input_specs(cfg, shape)
+        fn = jax.jit(model.decode_step, in_shardings=(
+            params_shardings(mesh, ps), cache_shardings(mesh, cfg, cs), batch_shardings(mesh, bs)),
+            out_shardings=(cache_shardings(mesh, cfg, cs), replicated(mesh)), donate_argnums=(1,))
+        with set_mesh(mesh):
+            return fn.lower(sp, cs, bs).compile()
+
+    moe = dataclasses.replace(ARCHS["qwen3-moe-235b-a22b"].reduced(), dispatch_mode="sort")
+    cells = {"train": (train, ARCHS["llama3-8b"].reduced(), ShapeConfig("small", "train", 32, 4)),
+             "decode": (decode, ARCHS["llama3-8b"].reduced(),
+                        ShapeConfig("small", "decode", 64, 4)),
+             "moe_train": (train, moe, ShapeConfig("small", "train", 32, 4))}
+    print(json.dumps({name: analyze_hlo(fn(cfg, shape).as_text()).as_dict()
+                      for name, (fn, cfg, shape) in cells.items()}))
 """)
+
 
 
 def test_fake_dry_run_of_the_small_cell(group, tmp_path):
@@ -379,6 +413,272 @@ def test_fake_dry_run_of_the_small_cell(group, tmp_path):
     ideal = six_nd + 4 * blocks
     assert ideal <= flops <= 1.25 * ideal, (flops, ideal)
     # the reference's partitioned program, counted from its text, within 10 %
-    want = group["ref_hlo"]["dot_flops"] * 4
+    want = group["ref_hlo"]["train"]["dot_flops"] * 4
     assert abs(flops - want) <= 0.10 * want, (flops, want)
     assert rec["op_summary"]["collective_bytes"]["all-gather"] > 0
+
+
+# ---------------------------------------------------------------------------
+# decode on the mesh: flash-decoding over the sequence-split cache
+# ---------------------------------------------------------------------------
+
+
+def _rel_gap(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def test_decode_on_the_mesh_matches_one_rank_and_reference(group):
+    """The reduced llama3-8b (f32) on (2, 2): the cache split by batch over
+    "data" and on its sequence over "model" (24 positions a half), a
+    4 x 32 prefill whose write straddles the halves, then three decode
+    steps.  Every step's logits and the cache within 1e-5 relative of one
+    rank's, and within the decode bound of ``tests/test_torch_models.py``
+    (1e-4 of the scale) of the reference's ``prefill``/``decode_step``."""
+    from repro_torch.convert import lm_params_from_numpy
+
+    got = group["got"]["decode"]
+    # (nsb, B, G, S, hd): B over "data", S over "model"; T crosses S / 2
+    assert got["placements"] == "(Shard(dim=1), Shard(dim=3))"
+    assert S_DEC // 2 < T < S_DEC
+    raw, tokens, dec = group["raw"], group["batch"]["tokens"], group["dec_tokens"]
+    model = LM(ARCHS["llama3-8b"].reduced(), compute_dtype=torch.float32, device="cpu")
+    params = lm_params_from_numpy(raw, model)
+    with torch.no_grad():
+        cache, lg = model.prefill(params, {"tokens": tokens}, model.init_cache(B, S_DEC))
+        want = [lg.numpy()]
+        for i in range(N_DEC):
+            cache, lg = model.decode_step(params, cache, {"token": dec[:, i], "pos": T + i})
+            want.append(lg.numpy())
+    for i, (g, w) in enumerate(zip(got["logits"], want)):
+        assert _rel_gap(g, w) <= 1e-5, (i, _rel_gap(g, w))
+    for name in ("k", "v"):
+        assert _rel_gap(got["cache"][name], cache["0"][name].numpy()) <= 1e-5, name
+    # the reference, step for step
+    ref = group["ref"]
+    rcache, rl = jax.jit(ref.prefill)(raw, {"tokens": jnp.asarray(tokens)},
+                                      ref.init_cache(B, S_DEC))
+    ref_logits = [np.asarray(rl)]
+    step = jax.jit(ref.decode_step)
+    for i in range(N_DEC):
+        rcache, rl = step(raw, rcache, {"token": jnp.asarray(dec[:, i]),
+                                        "pos": jnp.asarray(T + i, jnp.int32)})
+        ref_logits.append(np.asarray(rl))
+    for i, (g, w) in enumerate(zip(got["logits"], ref_logits)):
+        assert _rel_gap(g, w) <= 1e-4, (i, _rel_gap(g, w))
+    for name in ("k", "v"):
+        assert _rel_gap(got["cache"][name], np.asarray(rcache["0"][name], np.float32)) <= 1e-4
+
+
+def test_decode_attention_on_the_mesh_moves_only_the_partials(group):
+    """``decode_attention`` alone, the query whole in heads and the cache
+    split by batch and sequence, with a length in each of the four
+    (batch row, half) cases (whole, past the first half, the first half
+    only, a few): equal to the plain function, and its collectives are the
+    partials' all-reduces alone, at most ``(B_local, Hq, dh + 2)`` f32,
+    with no slice of the cache gathered."""
+    from repro_torch.models.layers import decode_attention
+
+    a, got = group["attn"], group["got"]["decode_attn"]
+    want = decode_attention(torch.from_numpy(a["q"]), torch.from_numpy(a["k"]),
+                            torch.from_numpy(a["v"]), torch.from_numpy(a["length"]),
+                            kv_chunk=a["kv_chunk"]).numpy()
+    assert _rel_gap(got["out"], want) <= 1e-5
+    assert got["placements"] == "(Shard(dim=0), Replicate())"
+    ops = got["ops"]
+    b_local, hq, _, dh = a["q"].shape
+    b_local //= 2
+    moved = ops["collective_bytes"]
+    assert {k: v for k, v in moved.items() if k != "all-reduce"} == {
+        "all-gather": 0, "reduce-scatter": 0, "all-to-all": 0, "broadcast": 0}
+    assert 0 < moved["all-reduce"] <= b_local * hq * (dh + 2) * 4, moved
+    assert ops["collective_counts"]["all-reduce"] == 2
+
+
+# ---------------------------------------------------------------------------
+# expert parallelism
+# ---------------------------------------------------------------------------
+
+
+def test_expert_parallel_step_matches_unsharded_and_reference(group):
+    """One sharded train step of the reduced qwen3-moe (8 experts, sort
+    dispatch), the experts split over "model": the loss within 1e-5
+    relative of the port's unsharded step, every parameter within 2e-5 of
+    it and of the reference's ``make_train_step``."""
+    rmoe, moe_cfg, moe_raw, moe_batch = group["moe"]
+    got = group["got"]["moe_step"]
+    moe = LM(moe_cfg, compute_dtype=torch.float32, device="cpu")
+    params = lm_master_from_numpy(moe_raw, moe)
+    up, _, um = make_train_step(moe, OPT, accum=1)(params, optim.adamw_init(params), moe_batch)
+    for k, v in um.items():
+        _close_rel(got["metrics"][k], v, 1e-5, k)
+    for path, want in _flat(lm_params_to_numpy(up)).items():
+        np.testing.assert_allclose(got["params"]["/".join(path)], want, atol=2e-5, err_msg=str(path))
+    wp, _, wm = jax.jit(ref_make_train_step(rmoe, REF_OPT, accum=1))(
+        moe_raw, ref_optim.adamw_init(moe_raw), jax.tree_util.tree_map(jnp.asarray, moe_batch))
+    _close_rel(got["metrics"]["loss"], wm["loss"], 1e-5, "reference loss")
+    for path, want in _ref_flat(wp).items():
+        np.testing.assert_allclose(got["params"]["/".join(path)], np.asarray(want), atol=2e-5,
+                                   err_msg=str(path))
+
+
+def test_expert_weights_and_moments_stay_split_over_model(group):
+    """After the step every parameter and both AdamW moments keep the
+    rules' placements (the expert weights ``Shard`` on "model" over their
+    expert dim), and no all-gather over "model" carries an expert weight:
+    the data axes' gathers (FSDP) are the only ones of the experts."""
+    _, moe_cfg, moe_raw, _ = group["moe"]
+    got = group["got"]["moe_step"]
+    mesh = SimpleNamespace(mesh_dim_names=("data", "model"), shape=(2, 2))
+    n_expert_leaves = 0
+    for name, (p_pl, m_pl, v_pl) in got["placements"].items():
+        path = tuple(name.split("/"))
+        leaf = _flat(moe_raw)[path]
+        want = str(sharding.to_placements(
+            mesh, shardings.guard_spec(mesh, sharding.param_spec(path, leaf), leaf.shape),
+            leaf.ndim))
+        assert p_pl == m_pl == v_pl == want, name
+        if path[-1].startswith("moe_w"):
+            assert want == "(Shard(dim=2), Shard(dim=1))", name  # d over data, E over model
+            n_expert_leaves += 1
+    assert n_expert_leaves == 3
+    e, d, f = moe_cfg.n_experts, moe_cfg.d_model, moe_cfg.moe_d_ff
+    block = (e // 2) * (d // 2) * f  # a rank's block of one expert weight
+    for shape in got["model_gathers"]:
+        carries_expert = (len(shape) >= 3 and tuple(shape[-2:]) in {(d // 2, f), (d, f), (f, d)}
+                          and int(np.prod(shape)) >= block)
+        assert not carries_expert, shape
+    assert got["n_gathers"] > len(got["model_gathers"])  # the experts' FSDP gathers
+
+
+#: name -> (top_k, capacity_factor): one case that keeps every entry, one
+#: that drops some at capacity
+_SHARE_CASES = {"keeps": (2, 8.0), "drops": (2, 0.25)}
+_SHARE_REF: dict = {}
+
+
+@pytest.mark.parametrize("ways", [(1, 1), (2, 1), (2, 2), (4, 3)], ids=str)
+@pytest.mark.parametrize("mode", ["sort", "einsum"])
+@pytest.mark.parametrize("case", sorted(_SHARE_CASES))
+def test_static_dispatch_shares_add_up_to_the_reference(case, mode, ways):
+    """Off the mesh, the static dispatch: the shares of a mesh's ranks
+    (``ways`` = experts split e ways, their slots c ways) summed equal the
+    whole layer, and the whole layer equals the reference's ``moe_ffn``
+    within the f32 bound of ``tests/test_torch_models.py``; the dropping
+    case drops entries."""
+    from repro.models import moe as ref_moe
+    from repro_torch.models import moe
+
+    top_k, cf = _SHARE_CASES[case]
+    rng = np.random.default_rng(6)
+    n_exp, d, f = 8, 64, 32
+    p = {"router": rng.normal(size=(d, n_exp)).astype(np.float32) * d ** -0.5,
+         "moe_w1": rng.normal(size=(n_exp, d, f)).astype(np.float32) * d ** -0.5,
+         "moe_w3": rng.normal(size=(n_exp, d, f)).astype(np.float32) * d ** -0.5,
+         "moe_w2": rng.normal(size=(n_exp, f, d)).astype(np.float32) * f ** -0.5}
+    x = rng.normal(size=(2, 24, d)).astype(np.float32)
+    opts = dict(n_experts=n_exp, top_k=top_k, capacity_factor=cf, dispatch_mode=mode)
+    tp = {k: torch.from_numpy(v) for k, v in p.items()}
+    whole, aux = moe.moe_ffn(tp, torch.from_numpy(x), **opts)
+    if (case, mode) not in _SHARE_REF:  # the reference compiled once per case and mode
+        _SHARE_REF[case, mode] = jax.jit(lambda pp, xx: ref_moe.moe_ffn(pp, xx, **opts))(
+            {k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x))
+    want, raux = _SHARE_REF[case, mode]
+    assert _rel_gap(whole.numpy(), np.asarray(want)) <= 1e-4
+    assert float(aux["dropped_frac"]) == pytest.approx(float(raux["dropped_frac"]), abs=1e-6)
+    assert (float(aux["dropped_frac"]) > 0) == (case == "drops")
+    # the ranks' shares, as _moe_on_mesh cuts them
+    xf = torch.from_numpy(x).reshape(-1, d)
+    _, _, _, e_flat, g_flat, cap, _, slot = moe._route(
+        xf, tp["router"], n_exp, top_k, cf, mode)
+    n_e, n_c = ways
+    cs = -(-cap // n_c)
+    total = torch.zeros_like(xf)
+    for i in range(n_e):
+        w = {k: tp[k][i * n_exp // n_e:(i + 1) * n_exp // n_e] for k in ("moe_w1", "moe_w3", "moe_w2")}
+        for j in range(n_c):
+            total = total + moe._experts(xf, g_flat, e_flat, slot, w["moe_w1"], w["moe_w3"],
+                                         w["moe_w2"], cap=cap, e0=i * n_exp // n_e, c0=j * cs,
+                                         cs=cs, top_k=top_k)
+    assert _rel_gap(total.numpy(), whole.reshape(-1, d).numpy()) <= 1e-6
+
+
+#: name -> (top_k, capacity_factor): four choices, so that adding them in
+#: the compute dtype and adding them wider then rounding once differ
+_BIT_CASES = {"keeps": (4, 8.0), "drops": (4, 0.25)}
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("mode", ["sort", "einsum"])
+@pytest.mark.parametrize("case", sorted(_BIT_CASES))
+def test_static_dispatch_equals_the_indexed_write_bit_for_bit(case, mode, dtype):
+    """Off the mesh, the static dispatch equals the reference's dataflow
+    written out in torch, bit for bit, at bf16 too: the indexed write of
+    the kept entries into the (E, cap, d) buffer, the three products, the
+    gather of each entry's output, its gate rounded to the compute dtype,
+    and the k choices added in the compute dtype, choice 0 first."""
+    from repro_torch.models import moe
+
+    top_k, cf = _BIT_CASES[case]
+    dt = _DT[dtype]
+    rng = np.random.default_rng(7)
+    n_exp, d, f = 8, 64, 32
+    p = {"router": rng.normal(size=(d, n_exp)) * d ** -0.5,
+         "moe_w1": rng.normal(size=(n_exp, d, f)) * d ** -0.5,
+         "moe_w3": rng.normal(size=(n_exp, d, f)) * d ** -0.5,
+         "moe_w2": rng.normal(size=(n_exp, f, d)) * f ** -0.5}
+    tp = {k: torch.from_numpy(v.astype(np.float32)).to(dt) for k, v in p.items()}
+    x = torch.from_numpy(rng.normal(size=(2, 24, d)).astype(np.float32)).to(dt)
+    got, _ = moe.moe_ffn(tp, x, n_experts=n_exp, top_k=top_k, capacity_factor=cf,
+                         dispatch_mode=mode)
+
+    xf = x.reshape(-1, d)
+    n = xf.shape[0]
+    _, _, _, e_flat, g_flat, cap, keep, slot = moe._route(xf, tp["router"], n_exp, top_k, cf, mode)
+    t_flat = torch.arange(n).repeat(top_k)
+    buf = torch.zeros((n_exp, cap, d), dtype=dt)
+    buf[e_flat[keep], slot[keep]] = xf[t_flat[keep]]
+    y = torch.bmm(moe.silu(torch.bmm(buf, tp["moe_w1"])) * torch.bmm(buf, tp["moe_w3"]),
+                  tp["moe_w2"])
+    out_e = torch.where(keep[:, None], y[e_flat, slot.clamp(max=cap - 1)], 0)
+    contrib = (out_e * g_flat[:, None].to(dt)).to(dt).reshape(top_k, n, d)
+    want = torch.zeros((n, d), dtype=dt)
+    for j in range(top_k):
+        want = want + contrib[j]
+    assert got.dtype == dt
+    assert torch.equal(got.reshape(n, d), want)
+
+
+# ---------------------------------------------------------------------------
+# the dry run of the decode and MoE cells
+# ---------------------------------------------------------------------------
+
+
+#: name -> (the port's dry-run flags, the reference cell in _REF_DRYRUN)
+_DRY_CELLS = {
+    "llama3-8b__decode_32k": (["--arch", "llama3-8b", "--shape", "decode_32k", "--batch", "4",
+                               "--seq", "64"], "decode"),
+    "qwen3-moe-235b-a22b__train_4k": (["--arch", "qwen3-moe-235b-a22b", "--shape", "train_4k",
+                                       "--batch", str(B), "--seq", str(T), "--accum", "1",
+                                       "--override", "dispatch_mode=sort"], "moe_train"),
+}
+
+
+@pytest.mark.parametrize("cell", sorted(_DRY_CELLS))
+def test_fake_dry_run_of_the_decode_and_moe_cells(group, tmp_path, cell):
+    """The reduced decode cell (4 x 64 cache, split on its sequence) and the
+    reduced qwen3-moe train cell (4 x 32, accum 1, sort dispatch) on a fake
+    (2, 2) mesh: ``ok``, and their matmul FLOPs within 10 % of the
+    reference's ``analyze_hlo`` of the same cell."""
+    flags, ref_cell = _DRY_CELLS[cell]
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--reduced",
+                        "--mesh", "2x2", "--out-root", str(tmp_path)] + flags,
+                       capture_output=True, text=True, env={**os.environ, "PYTHONPATH": SRC},
+                       timeout=300)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-3000:]
+    rec = json.loads((tmp_path / "2x2" / f"{cell}.json").read_text())
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert rec["memory"]["peak_bytes"] > 0
+    flops = rec["op_summary"]["dot_flops"]
+    want = group["ref_hlo"][ref_cell]["dot_flops"]
+    assert abs(flops - want) <= 0.10 * want, (flops, want)
